@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA GPU and check it.
+"""Drive the PyTorch port's main paths on one CUDA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -8,25 +8,49 @@ Phases (every check raises; nothing is caught):
 1. Device: require CUDA; print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
    them, with the torch, CUDA and Triton versions.
-2. Kernels: build each kernel of the path from this checkout's source, run
-   it on the card at the main path's shapes (K1: the re-render's
-   (1, 1024, 1024, 3), the batch (4, 1024, 1024, 3) and a ragged
-   (1, 1000, 760, 3)) and hold it against its plain PyTorch version (max abs
-   error <= 2e-5, the tolerance of tests/test_pallas.py); time both at the
-   1024 px shapes with CUDA events (3 warm-up runs, median of 20,
-   alternating).
-3. Main path: the parametric-edit CLI's per-batch function
+2. Kernels: build each kernel from this checkout's source (the CUDA C++
+   sources with ``nvcc`` for ``sm_90a``, one process per source, started
+   together; the Triton kernel at its first launch), run it on the card at
+   the main paths' shapes and hold it against its plain PyTorch version.
+   K1 (pointwise chain): the re-render's (1, 1024, 1024, 3), the batch
+   (4, 1024, 1024, 3) and a ragged (1, 1000, 760, 3), max abs error <= 2e-5
+   (the tolerance of tests/test_pallas.py). K2 (flash attention forward,
+   backward dK/dV, backward dQ): the UNet's (2, 5, 16384, 64), the VAE's
+   (1, 1, 16384, 512) and a ragged (1, 5, 9000, 64), in float32 and
+   bfloat16; tolerances in ``K2_TOLERANCE`` below. Kernel and plain version
+   are timed with CUDA events in alternation; one PyTorch call that computes
+   the same function (``scaled_dot_product_attention`` and its autograd
+   backward) is timed beside them as a yardstick only. Kernel and matmul
+   routes are also timed at (2, 10, 4096, 64), below the modules' gate.
+3. Slice A's path: the parametric-edit CLI's per-batch function
    (``edit_batch``) on 4 random 480x480 images: ResNet-50 ten-crop 480/448
    regressor and CLIP ViT-B/32 at 224 with random weights from the seed, 100
    Adam steps, one adaptation (alpha 0.1), then evaluate, then the 1024 px
    re-render through kernel K1 (after a 2-step warm-up edit without the
-   re-render). The launch counts are zeroed just before and
-   read just after. Checks: every kernel launched, finite losses, best <=
-   first loss per image, outputs in [0, 1]; the objective at image 0's last
-   vector (rtol 1e-3) and its re-render (atol 1e-4) agree with the same
-   computation on the CPU.
-4. One JSON line ``{"kernels": [...]}``, then the last line
-   ``{"ok": true, "device": {...}}``.
+   re-render). Checks: K1 launched, finite losses, best <= first loss per
+   image, outputs in [0, 1]; the objective at image 0's last vector (rtol
+   1e-3) and its re-render (atol 1e-4) agree with the same computation on
+   the CPU.
+4. Slice C1's path: the diffusion-edit CLI's ``build_models`` and per-image
+   function (``adapt_image``) on one random 1024 px image at SD-2.1 width
+   (UNet ``sd21``, VAE ``sd``, OpenCLIP ViT-H text tower, ``MiduSD``), random
+   weights from the seed, float32 with TF32 off, null-text optimization on,
+   ``--cfg-scale 2.0 --clf-scale 0.2 --reference-value 0.1`` and
+   ``DIFFUSION_STEPS`` DDIM steps (the only cut: the CLI's default is 50).
+   Checks: each K2 launch count equals the count the code implies (derived
+   and printed); latents, null-text embeddings and the image finite; the
+   image (1, 1024, 1024, 3) in [0, 1]; every classifier-guidance gradient
+   non-zero.
+5. Card against CPU with the same full-width modules at 256 px (below the
+   gate, so this holds everything but the kernels): one CFG +
+   classifier-guidance sampling step, and the loss and gradient of one
+   null-text inner step: rtol 1e-3.
+6. Kernel route against plain route through the modules: ``CrossAttention``
+   (self) and ``VaeAttention`` outputs and input gradients at the path's
+   shapes against the same projections fed to the plain flash attention.
+7. Each path is driven with the launch counts set to 0 just before it and
+   read just after. One JSON line ``{"kernels": [...]}``, then the card, then
+   the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.
@@ -45,23 +69,52 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 NUM_IMAGES, EDIT_SIZE, OUTPUT_SIZE, NUM_STEPS, ALPHA = 4, 480, 1024, 100, 0.1
 TOLERANCE = 2e-5
 
+# The diffusion edit of phase 4.
+DIFFUSION_SIZE, DIFFUSION_STEPS = 1024, 20
+CFG_SCALE, CLF_SCALE, REFERENCE_VALUE = 2.0, 0.2, 0.1
+ATTENTION_SITES_UNET = 5   # down_0_attn_0/1, up_3_attn_0/1/2: 16384 positions, 5 heads of 64
+ATTENTION_SITES_UNET_DOWN = 2  # the sites a gradient through the mid features reaches
 
-def time_pair(kernel, plain, warmup=3, reps=20):
-    """Median milliseconds of ``kernel()`` and ``plain()``, timed with CUDA
-    events in alternation on the current stream."""
+# K2 against its plain version. float32: both sum in float32 in different
+# orders; outputs and log-sum-exp are of order 1 or smaller, gradients are
+# compared relative to their largest entry. bfloat16: both round the same
+# float32 result once to 8 significant bits, so they differ by at most one
+# step of that grid (2^-7 of the largest entry); the gradients also inherit
+# the rounding of the saved output through di = rowsum(o * do).
+K2_TOLERANCE = {
+    torch.float32: dict(out=2e-5, lse=2e-5, grad=1e-4),
+    torch.bfloat16: dict(out=2.0 ** -7, lse=2e-5, grad=2e-2),
+}
+
+# Published peaks of one H100 SXM: dense float32 outside the tensor cores,
+# dense bfloat16 in them, and the HBM3 rate.
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_BYTES = 3.35e12
+
+
+def time_group(fns, warmup=3, reps=20):
+    """Median milliseconds of each ``fn()`` of ``fns``, timed with CUDA events
+    in alternation on the current stream."""
     for _ in range(warmup):
-        kernel()
-        plain()
-    times = {kernel: [], plain: []}
+        for fn in fns:
+            fn()
+    times = [[] for _ in fns]
     for _ in range(reps):
-        for fn in (kernel, plain):
+        for fn, ts in zip(fns, times):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
             end.synchronize()
-            times[fn].append(start.elapsed_time(end))
-    return float(np.median(times[kernel])), float(np.median(times[plain]))
+            ts.append(start.elapsed_time(end))
+    return [float(np.median(ts)) for ts in times]
+
+
+def bound(flops, n_bytes, dtype):
+    """The least milliseconds the card could take: operations over the peak
+    rate of their type, or bytes over the memory rate, whichever is larger."""
+    by_ops, by_bytes = flops / PEAK_FLOPS[dtype] * 1e3, n_bytes / PEAK_BYTES * 1e3
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
 def draw_params(rng, device):
@@ -80,6 +133,330 @@ def draw_params(rng, device):
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def rel_err(got, expect):
+    """Max abs error relative to the largest entry of ``expect``."""
+    return float((got.float() - expect.float()).abs().max() / expect.float().abs().max())
+
+
+def flash_attention_phase(device, card):
+    """Phase 2 for K2: checks at the paths' shapes in both types, then
+    timings. Returns the three entries of the ``kernels`` line (launches are
+    filled in by the path phase)."""
+    import torch.nn.functional as F
+
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+
+    t0 = time.perf_counter()
+    FA.build_kernels()
+    print(f"flash attention: three CUDA sources built with nvcc for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for dtype, tol in K2_TOLERANCE.items():
+        print(f"flash attention tolerance {dtype}: out {tol['out']:g} (bf16: of the largest "
+              f"entry), lse {tol['lse']:g}, gradients {tol['grad']:g} of their largest entry")
+
+    def make(shape, dtype, seed):
+        b, h, n, d = shape
+        rng = np.random.default_rng(seed)
+        # (b, n, h, d) storage seen as (b, h, n, d): the modules' own layout.
+        return [torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32))
+                .to(device).to(dtype).transpose(1, 2) for _ in range(4)]
+
+    errors = {"fwd": 0.0, "dkv": 0.0, "dq": 0.0}
+    timings = {}
+    unet_shape, vae_shape = (2, 5, 16384, 64), (1, 1, 16384, 512)
+    for shape in [unet_shape, vae_shape, (1, 5, 9000, 64)]:
+        for dtype, tol in K2_TOLERANCE.items():
+            q, k, v, do = make(shape, dtype, shape[2] + shape[3])
+            scale = 1.0 / shape[3] ** 0.5
+            o, lse = FA.flash_attention_with_lse(q, k, v, scale)
+            ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            dq, dk, dv = torch.autograd.grad(FA.flash_attention(ql, kl, vl, sm_scale=scale),
+                                             (ql, kl, vl), do)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = FA.reference_flash_attention(q, k, v, scale)
+            dq_ref, dk_ref, dv_ref = FA.reference_flash_attention_bwd(q, k, v, o_ref, lse_ref,
+                                                                      do, scale)
+            e_out = float((o.float() - o_ref.float()).abs().max())
+            if dtype == torch.bfloat16:
+                e_out /= float(o_ref.float().abs().max())
+            e_lse = float((lse - lse_ref).abs().max())
+            e_dq, e_dk, e_dv = rel_err(dq, dq_ref), rel_err(dk, dk_ref), rel_err(dv, dv_ref)
+            print(f"flash attention {shape} {dtype}: out {e_out:.3e}, lse {e_lse:.3e}, "
+                  f"dq {e_dq:.3e}, dk {e_dk:.3e}, dv {e_dv:.3e}")
+            check(e_out <= tol["out"] and e_lse <= tol["lse"],
+                  f"flash attention forward disagrees with its plain version at {shape} {dtype}")
+            check(max(e_dk, e_dv) <= tol["grad"],
+                  f"flash attention dK/dV disagrees with its plain version at {shape} {dtype}")
+            check(e_dq <= tol["grad"],
+                  f"flash attention dQ disagrees with its plain version at {shape} {dtype}")
+            if dtype == torch.float32:
+                errors["fwd"] = max(errors["fwd"], e_out, e_lse)
+                errors["dkv"] = max(errors["dkv"], e_dk, e_dv)
+                errors["dq"] = max(errors["dq"], e_dq)
+            if shape[2] != 16384:
+                continue
+
+            # Timings: wrapper call, plain version, the library's call.
+            di = FA._row_delta(o, do)
+            qs, ks, vs, dos = (FA._strided(t) for t in (q, k, v, do))
+            qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+            lib_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            fwd = time_group([lambda: FA._launch_fwd(qs, ks, vs, scale),
+                              lambda: FA.reference_flash_attention(q, k, v, scale),
+                              lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)], 1, 5)
+            dkv = time_group([lambda: FA._launch_bwd_dkv(qs, ks, vs, dos, lse, di, scale),
+                              lambda: FA.reference_flash_attention_bwd_dkv(q, k, v, do, lse, di,
+                                                                           scale)], 1, 5)
+            dqt = time_group([lambda: FA._launch_bwd_dq(qs, ks, vs, dos, lse, di, scale),
+                              lambda: FA.reference_flash_attention_bwd_dq(q, k, v, do, lse, di,
+                                                                          scale),
+                              lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                                          retain_graph=True)], 1, 5)
+            b, h, n, d = shape
+            size = q.element_size()
+            tensor_bytes, row_bytes = b * h * n * d * size, b * h * n * 4
+            mm = 2.0 * b * h * n * n * d   # one N x N x d product
+            bounds = {"fwd": bound(2 * mm, 4 * tensor_bytes + row_bytes, dtype),
+                      "dkv": bound(4 * mm, 6 * tensor_bytes + 2 * row_bytes, dtype),
+                      "dq": bound(3 * mm, 5 * tensor_bytes + 2 * row_bytes, dtype)}
+            timings[(shape, dtype)] = dict(fwd=fwd, dkv=dkv + [dqt[2]], dq=dqt, bounds=bounds)
+            print(f"flash attention {shape} {dtype} ms (median of 5, CUDA events) on {card}: "
+                  f"fwd kernel {fwd[0]:.3f} plain {fwd[1]:.3f} library sdpa {fwd[2]:.3f} bound "
+                  f"{bounds['fwd'][0]:.3f}; dkv kernel {dkv[0]:.3f} plain {dkv[1]:.3f} bound "
+                  f"{bounds['dkv'][0]:.3f}; dq kernel {dqt[0]:.3f} plain {dqt[1]:.3f} bound "
+                  f"{bounds['dq'][0]:.3f}; library sdpa backward (dq, dk, dv at once) "
+                  f"{dqt[2]:.3f}")
+
+    # Below the gate: the kernel route against the modules' matmul route.
+    shape = (2, 10, 4096, 64)
+    q, k, v, do = make(shape, torch.float32, 7)
+    scale = 1.0 / 8.0
+
+    def matmul_route(q, k, v):
+        attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / 8.0, dim=-1)
+        return torch.matmul(attn, v)
+
+    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    small = time_group([
+        lambda: FA.flash_attention(q, k, v, sm_scale=scale), lambda: matmul_route(q, k, v),
+        lambda: torch.autograd.grad(FA.flash_attention(ql, kl, vl, sm_scale=scale),
+                                    (ql, kl, vl), do),
+        lambda: torch.autograd.grad(matmul_route(ql, kl, vl), (ql, kl, vl), do)], 1, 5)
+    print(f"attention routes at {shape} float32 ms on {card}: forward kernel {small[0]:.3f} "
+          f"matmul {small[1]:.3f}; forward+backward kernel {small[2]:.3f} matmul {small[3]:.3f}")
+    del q, k, v, do, ql, kl, vl
+    q, k, v, _ = make(unet_shape, torch.float32, 9)
+    torch.cuda.reset_peak_memory_stats()
+    big = time_group([lambda: FA.flash_attention(q, k, v, sm_scale=scale),
+                      lambda: matmul_route(q, k, v)], 1, 3)
+    print(f"attention routes at {unet_shape} float32 ms: forward kernel {big[0]:.3f} matmul "
+          f"{big[1]:.3f} (the matmul route's scores: peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB; its backward is not run)")
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    t = timings[(unet_shape, torch.float32)]
+    common = dict(route="cuda", launches=0, timed_shape=list(unet_shape))
+    source = "rgie_tpu_torch/csrc/flash_attention_{}.cu"
+    replaces = "jax/experimental/pallas/ops/tpu/flash_attention.py:{}"
+    entries = []
+    for key, name, line, fn in [("fwd", "flash_attention_fwd", 758, "_flash_attention_impl"),
+                                ("dkv", "flash_attention_bwd_dkv", 1121,
+                                 "_flash_attention_bwd_dkv"),
+                                ("dq", "flash_attention_bwd_dq", 1456, "_flash_attention_bwd_dq")]:
+        entries.append(dict(
+            name=name, source=source.format(key if key == "fwd" else "bwd_" + key),
+            replaces=replaces.format(line), replaces_function=fn, max_abs_err=errors[key],
+            ms=t[key][0], kernel_ms=t[key][0], plain_ms=t[key][1],
+            bound_ms=t["bounds"][key][0], bound_by=t["bounds"][key][1], library_ms=t[key][2],
+            **common))
+    return entries
+
+
+def expected_flash_launches(steps, nto_inner_steps):
+    """The K2 launches one single-image edit implies, with its derivation.
+    Every UNet forward at 128 x 128 latents launches the forward kernel at its
+    5 top-level self-attention sites, every VAE pass once."""
+    u, d = ATTENTION_SITES_UNET, ATTENTION_SITES_UNET_DOWN
+    inner = sum(nto_inner_steps)
+    lines = [
+        ("score the original: VAE encode + UNet", 1 + u, 0),
+        ("VAE encode", 1, 0),
+        (f"invert: {steps} UNet forwards", steps * u, 0),
+        # The first site precedes the first cross-attention, so its inputs do
+        # not depend on the embeddings and it has no backward.
+        (f"null-text: {steps} outer steps x (cond forward + CFG pair forward) + {inner} inner "
+         f"steps x (forward, backward at {u - 1} sites)", steps * 2 * u + inner * u,
+         inner * (u - 1)),
+        (f"sample: {steps} steps x (CFG pair forward + guidance forward, backward through the "
+         f"{d} sites below the mid block)", steps * 2 * u, steps * d),
+        ("VAE decode", 1, 0),
+        ("rescore the edit: VAE encode + UNet", 1 + u, 0),
+    ]
+    for what, fwd, bwd in lines:
+        print(f"  launches expected, {what}: forward {fwd}, dK/dV {bwd}, dQ {bwd}")
+    return sum(f for _, f, _ in lines), sum(b for _, _, b in lines)
+
+
+def diffusion_path_phase(device, card, rng):
+    """Phase 4: the SD-2.1 edit of one 1024 px image through the diffusion CLI's
+    functions. Returns (the three launch counts, the model stack)."""
+    from PIL import Image
+
+    from rgie_tpu_torch.cli import adapt_images as cli
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+
+    work = os.path.join(REPO, "build", "chip_smoke")
+    os.makedirs(work, exist_ok=True)
+    image_path = os.path.join(work, "random_1024.jpg")
+    Image.fromarray((rng.uniform(0, 1, (DIFFUSION_SIZE, DIFFUSION_SIZE, 3)) * 255)
+                    .astype(np.uint8)).save(image_path)
+    args = cli.build_parser().parse_args([
+        "--scale", "sd", "--input-size", str(DIFFUSION_SIZE), "--dtype", "float32",
+        "--num-steps", str(DIFFUSION_STEPS), "--cfg-scale", str(CFG_SCALE),
+        "--clf-scale", str(CLF_SCALE), "--reference-value", str(REFERENCE_VALUE),
+        "--out-dir", os.path.join(work, "out"), "--device", "cuda", "--seed", "0"])
+    t0 = time.perf_counter()
+    stack = cli.build_models(args, torch.Generator().manual_seed(args.seed), device)
+    adapter, manager = cli.make_adapter(stack, args.out_dir)
+    gcfg, acfg = cli.make_configs(args)
+    torch.cuda.synchronize()
+    print(f"diffusion edit: models built (random weights, seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    FA.LAUNCHES_FWD = FA.LAUNCHES_BWD_DKV = FA.LAUNCHES_BWD_DQ = 0
+    t0 = time.perf_counter()
+    outputs = cli.adapt_image(adapter, manager, image_path, gcfg, acfg, "a random image")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = (FA.LAUNCHES_FWD, FA.LAUNCHES_BWD_DKV, FA.LAUNCHES_BWD_DQ)
+    peak = torch.cuda.max_memory_allocated()
+
+    log = adapter.last_log
+    print(f"diffusion edit: {DIFFUSION_STEPS} DDIM steps (the CLI's default is 50; nothing else "
+          f"is cut), null-text inner steps per outer step {log.nto_inner_steps}")
+    want_fwd, want_bwd = expected_flash_launches(DIFFUSION_STEPS, log.nto_inner_steps)
+    print(f"  launches counted: forward {counts[0]}, dK/dV {counts[1]}, dQ {counts[2]}; "
+          f"expected {want_fwd}, {want_bwd}, {want_bwd}")
+    check(counts == (want_fwd, want_bwd, want_bwd), "K2 launch counts differ from the derivation")
+    check(min(counts) > 0, "a flash attention kernel was not launched in the diffusion edit")
+
+    (label, image), = outputs.items()
+    check(image.shape == (1, DIFFUSION_SIZE, DIFFUSION_SIZE, 3), "edited image shape")
+    check(bool(torch.isfinite(image).all()), "non-finite edited image")
+    check(float(image.min()) >= 0.0 and float(image.max()) <= 1.0, "edited image outside [0, 1]")
+    for name in ("latents", "noisy", "nto_embeds", "out_latents"):
+        check(bool(torch.isfinite(log.tensors[name]).all()), f"non-finite {name}")
+    check(log.tensors["nto_embeds"].shape == (DIFFUSION_STEPS, 77, 1024), "null-text embeddings")
+    norms = [float(g) for g in log.clf_grad_norms]
+    check(len(norms) == DIFFUSION_STEPS and all(np.isfinite(g) and g > 0 for g in norms),
+          f"classifier-guidance gradient norms {norms}")
+    check(os.path.exists(os.path.join(args.out_dir, label, "random_1024.jpg")), "saved image")
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in log.seconds.items())
+    print(f"diffusion edit: {seconds:.3f} s for one 1024 px image at {DIFFUSION_STEPS} steps "
+          f"(scoring the original included), peak memory {peak / 2**30:.2f} GiB, on {card}")
+    print(f"  seconds per phase: {phases}; classifier-guidance gradient norms "
+          + " ".join(f"{g:.3e}" for g in norms))
+    return counts, stack
+
+
+def card_against_cpu_phase(stack, rng):
+    """Phase 5: the full-width modules at 256 px (1024 positions, below the
+    gate) on the card and on the CPU."""
+    import copy
+    import dataclasses
+
+    pipe = stack.pipe
+    device = pipe.device
+    pipe_cpu = dataclasses.replace(
+        pipe, unet=copy.deepcopy(pipe.unet).cpu(), midu_model=copy.deepcopy(pipe.midu_model).cpu())
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    lat, lat_prev = arr(1, 32, 32, 4), arr(1, 32, 32, 4)
+    embeds, nto = arr(2, 77, 1024), arr(DIFFUSION_STEPS, 77, 1024)
+    ref = torch.tensor([[0.4, 0.6]])
+    ts, next_ts, i_vals = pipe.sample_tables(0)
+
+    def sample_step(p, dev):
+        out, _ = p.sample_steps(lat.to(dev), None, embeds.to(dev), None, ts[:1], next_ts[:1],
+                                i_vals[:1], guidance_scale=CFG_SCALE,
+                                guidance_clf_scale=CLF_SCALE,
+                                uncond_embeds_per_step=nto.to(dev),
+                                midu_reference_value=ref.to(dev))
+        return out.cpu()
+
+    def inner_step(p, dev):
+        t = int(ts[0])
+        with torch.no_grad():
+            eps_cond, _ = p._unet(lat.to(dev), t, embeds[1:].to(dev), None)
+        loss, grad = p.null_inner_loss_and_grad(embeds[:1].to(dev), lat.to(dev), t, eps_cond,
+                                                lat_prev.to(dev), CFG_SCALE)
+        return loss.cpu(), grad.cpu()
+
+    t0 = time.perf_counter()
+    step_card, step_cpu = sample_step(pipe, device), sample_step(pipe_cpu, torch.device("cpu"))
+    (loss_card, grad_card), (loss_cpu, grad_cpu) = (inner_step(pipe, device),
+                                                    inner_step(pipe_cpu, torch.device("cpu")))
+    e_step, e_grad = rel_err(step_card, step_cpu), rel_err(grad_card, grad_cpu)
+    print(f"card against CPU at 256 px, full width: guided sampling step {e_step:.3e}; null-text "
+          f"inner loss {float(loss_card):.7f} vs {float(loss_cpu):.7f}, gradient {e_grad:.3e} "
+          f"(of the largest entry; limit 1e-3) in {time.perf_counter() - t0:.1f} s")
+    check(e_step <= 1e-3, "guided sampling step disagrees with the CPU")
+    check(abs(float(loss_card) - float(loss_cpu)) <= 1e-3 * abs(float(loss_cpu)),
+          "null-text inner loss disagrees with the CPU")
+    check(e_grad <= 1e-3, "null-text inner gradient disagrees with the CPU")
+
+
+def module_route_phase(stack, rng):
+    """Phase 6: the attention modules at the path's shapes, kernel route
+    (through the module) against plain route (the same projections through
+    the plain flash attention)."""
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+
+    pipe = stack.pipe
+    device = pipe.device
+
+    def compare(name, module_fn, plain_fn, shape):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+        w = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+        results = []
+        for fn in (module_fn, plain_fn):
+            xin = x.clone().requires_grad_(True)
+            y = fn(xin)
+            (g,) = torch.autograd.grad((y * w).sum(), xin)
+            results.append((y.detach(), g))
+        (y_k, g_k), (y_p, g_p) = results
+        e_y, e_g = rel_err(y_k, y_p), rel_err(g_k, g_p)
+        print(f"{name} at {shape}: kernel route against plain route, output {e_y:.3e}, input "
+              f"gradient {e_g:.3e} (of the largest entry; limit 1e-4)")
+        check(e_y <= 1e-4 and e_g <= 1e-4, f"{name}: kernel route disagrees with the plain route")
+
+    attn = pipe.unet.down_blocks[0].attentions[0].transformer_blocks[0].attn1
+
+    def cross_plain(x):
+        b, n, _ = x.shape
+        q, k, v = (proj(x).view(b, n, attn.heads, attn.dim_head).transpose(1, 2)
+                   for proj in (attn.to_q, attn.to_k, attn.to_v))
+        out = FA.plain_flash_attention(q, k, v, 1.0 / attn.dim_head ** 0.5)
+        return attn.to_out[0](out.transpose(1, 2).reshape(b, n, -1))
+
+    compare("CrossAttention (self)", attn, cross_plain, (2, 16384, 320))
+
+    vattn = pipe.vae.decoder.mid_block.attentions[0]
+
+    def vae_plain(x):
+        b, c, h, w = x.shape
+        y = vattn.group_norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        q, k, v = vattn.to_q(y), vattn.to_k(y), vattn.to_v(y)
+        y = FA.plain_flash_attention(q[:, None], k[:, None], v[:, None], 1.0 / c ** 0.5)[:, 0]
+        return x + vattn.to_out[0](y).reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+    compare("VaeAttention", vattn, vae_plain, (1, 512, 128, 128))
 
 
 def main():
@@ -119,11 +496,17 @@ def main():
         check(err <= TOLERANCE, f"pointwise_chain disagrees with its plain version at {shape}")
         errors.append(err)
         if shape[1] == OUTPUT_SIZE:
-            times[shape] = time_pair(lambda: PC.pointwise_chain(img, params),
-                                     lambda: PC.reference_pointwise_chain(img, params))
+            times[shape] = time_group([lambda: PC.pointwise_chain(img, params),
+                                       lambda: PC.reference_pointwise_chain(img, params)])
             print(f"pointwise_chain {shape}: kernel {times[shape][0]:.4f} ms, plain "
                   f"{times[shape][1]:.4f} ms (median of 20, CUDA events) on {card}")
     kernel_ms, plain_ms = times[timed_shape]
+    # K1 reads the image once and writes it once; its arithmetic is far below
+    # the float32 rate, so the memory rate bounds it.
+    k1_bound_ms, k1_bound_by = bound(60.0 * np.prod(timed_shape), 2 * 4 * np.prod(timed_shape),
+                                     torch.float32)
+    print(f"pointwise_chain {timed_shape}: bound {k1_bound_ms:.4f} ms by {k1_bound_by}")
+    k2_entries = flash_attention_phase(device, card)
     print(f"kernel phase: build, checks and timing {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. the main path, through the CLI's per-batch function
@@ -191,6 +574,16 @@ def main():
           + " ".join(f"{v:.5f}" for v in res.losses[0, ::10].tolist())
           + f"; best {res.best_loss.tolist()} at steps {res.best_step.tolist()}")
 
+    # ---- 4-6. the diffusion edit, its modules against the CPU, and the
+    # attention modules' two routes
+    del models, models_cpu, out, res, images, full, ctx
+    torch.cuda.empty_cache()
+    flash_counts, stack = diffusion_path_phase(device, card, rng)
+    card_against_cpu_phase(stack, rng)
+    module_route_phase(stack, rng)
+    for entry, count in zip(k2_entries, flash_counts):
+        entry["launches"] = count
+
     print(json.dumps({"kernels": [{
         "name": "pointwise_chain", "route": "triton",
         "source": "rgie_tpu_torch/ops/kernels/pointwise_chain_triton.py",
@@ -198,7 +591,8 @@ def main():
         "replaces_function": "_prefix_kernel",
         "launches": launches, "max_abs_err": max(errors), "timed_shape": list(timed_shape),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+        "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None,
+    }] + k2_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -20,7 +20,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rgie_tpu.config import OptimizeConfig, ParamEditConfig
+from rgie_tpu_torch.config import OptimizeConfig, ParamEditConfig
 from rgie_tpu_torch.engine import parametric as P
 from rgie_tpu_torch.engine.optimize import OptResult
 from rgie_tpu_torch.ops import chain as CH
@@ -76,7 +76,7 @@ def build_models(args, generator: torch.Generator, device: torch.device) -> P.Ed
     """The frozen VA loss, CLIP encoder and (with ``--weight-dis``) pixel
     discriminator: checkpoints where the paths exist, else random stand-ins
     drawn from ``generator``."""
-    from rgie_tpu.config import MODELS_DIR
+    from rgie_tpu_torch.config import MODELS_DIR
     from rgie_tpu_torch.models.clip import create_clip_image_encoder
     from rgie_tpu_torch.models.loader import load_va_loss
 
@@ -92,10 +92,9 @@ def build_models(args, generator: torch.Generator, device: torch.device) -> P.Ed
         dis = PixelDiscriminator(size_w=args.crop_size, size_h=args.crop_size)
         dis_path = args.dis_model or str(MODELS_DIR / "imagenet_w0_high_lookhere_dis")
         if os.path.exists(dis_path):
-            from rgie_tpu.utils.torch_convert import load_torch_state_dict
+            from rgie_tpu_torch.utils.checkpoint import load_torch_state_dict
 
-            dis.load_state_dict({k: torch.from_numpy(v) for k, v in
-                                 load_torch_state_dict(dis_path).items()}, strict=True)
+            dis.load_state_dict(load_torch_state_dict(dis_path), strict=True)
             print(f"loaded pixel discriminator from {dis_path}")
         else:
             random_init_(dis, generator)
@@ -177,9 +176,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     from PIL import Image
 
-    from rgie_tpu.config import DATA_DIR, OUT_DIR
-    from rgie_tpu.data import CaptionFeedDataset, iterate_batches, load_image_rgb, preprocess_image
-    from rgie_tpu.utils import stats as S
+    from rgie_tpu_torch.config import DATA_DIR, OUT_DIR
+    from rgie_tpu_torch.data import (CaptionFeedDataset, iterate_batches, load_image_rgb,
+                                     preprocess_image)
+    from rgie_tpu_torch.utils import stats as S
 
     data_dir = args.data_dir or str(DATA_DIR)
     out_dir = args.out_dir or str(OUT_DIR / f"optimized_param_{args.weight_clf:<1.2f}")

@@ -1,0 +1,5 @@
+from rgie_tpu_torch.data.dataset import (CaptionFeedDataset, first_caption, iterate_batches,
+                                         load_image_rgb, preprocess_image)
+
+__all__ = ["CaptionFeedDataset", "first_caption", "iterate_batches", "load_image_rgb",
+           "preprocess_image"]

@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from rgie_tpu.config import OptimizeConfig
+from rgie_tpu_torch.config import OptimizeConfig
 
 
 def lr_ramp_schedule(learning_rate: float, num_steps: int,

@@ -14,7 +14,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from rgie_tpu.config import ParamEditConfig
+from rgie_tpu_torch.config import ParamEditConfig
 from rgie_tpu_torch.engine.optimize import OptResult, optimize
 from rgie_tpu_torch.losses.emotion_loss import ValenceArousalLoss
 from rgie_tpu_torch.models.clip import ClipImageEncoder, clip_loss

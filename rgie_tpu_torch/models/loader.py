@@ -17,6 +17,7 @@ from rgie_tpu_torch.losses.emotion_loss import ValenceArousalLoss
 from rgie_tpu_torch.models.emotion import EmotionRegressor, create_regressor
 from rgie_tpu_torch.models.init import freeze_
 from rgie_tpu_torch.models.resnet import resnet50
+from rgie_tpu_torch.utils.checkpoint import load_torch_state_dict
 
 
 def load_va_loss(path_to_model: Optional[str], generator: torch.Generator,
@@ -44,11 +45,8 @@ def load_va_loss(path_to_model: Optional[str], generator: torch.Generator,
     kw = dict(num_classes=num_classes, normalize=is_input_range_0_1,
               input_size=input_size, crop_size=crop_size, use_sigmoid=use_sigmoid)
     if path and os.path.exists(path):
-        from rgie_tpu.utils.torch_convert import load_torch_state_dict
-
         net = resnet50(num_classes)
-        state = {k: torch.from_numpy(v) for k, v in load_torch_state_dict(path).items()}
-        net.load_state_dict(state, strict=True)
+        net.load_state_dict(load_torch_state_dict(path), strict=True)
         regressor = freeze_(EmotionRegressor(net, **kw))
     else:
         regressor = create_regressor(generator, **kw)

@@ -1,9 +1,10 @@
 """Flax parameter trees -> torch state dicts for the port's modules.
 
 The inverses of the converters in ``rgie_tpu/utils/torch_convert.py``. The
-port's modules use torchvision and OpenAI-CLIP names, so the reference's own
-checkpoints load directly; these functions move weights the other way, from
-a JAX model (arrays in, e.g. ``np.asarray`` of its variables) to the port.
+port's modules use torchvision, OpenAI-CLIP, diffusers and HF-transformers
+names, so the reference's own checkpoints load directly; these functions move
+weights the other way, from a JAX model (arrays in, e.g. ``np.asarray`` of
+its variables) to the port.
 Each returns a ``state_dict`` of float32 tensors that ``load_state_dict(...,
 strict=True)`` takes.
 """
@@ -122,4 +123,189 @@ def pixel_discriminator_state_dict(flax_variables: Mapping[str, Any], size_w: in
         sd[f"modules_logs.{s}.1.bias"] = _t(p[f"s{s}_fc0"]["bias"])
         sd[f"modules_logs.{s}.3.weight"] = _dense(p[f"s{s}_fc1"]["kernel"])
         sd[f"modules_logs.{s}.3.bias"] = _t(p[f"s{s}_fc1"]["bias"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# Diffusion stack: UNet2DCondition, AutoencoderKL, the CLIP text tower, midu
+# ---------------------------------------------------------------------------
+
+
+def _put_conv(sd, dst, src):
+    sd[f"{dst}.weight"] = _conv(src["kernel"])
+    sd[f"{dst}.bias"] = _t(src["bias"])
+
+
+def _put_linear(sd, dst, src):
+    sd[f"{dst}.weight"] = _dense(src["kernel"])
+    if "bias" in src:
+        sd[f"{dst}.bias"] = _t(src["bias"])
+
+
+def _put_norm(sd, dst, src):
+    sd[f"{dst}.weight"] = _t(src["scale"])
+    sd[f"{dst}.bias"] = _t(src["bias"])
+
+
+def _put_resnet(sd, dst, src):
+    _put_norm(sd, f"{dst}.norm1", src["norm1"]["norm"])
+    _put_conv(sd, f"{dst}.conv1", src["conv1"])
+    _put_norm(sd, f"{dst}.norm2", src["norm2"]["norm"])
+    _put_conv(sd, f"{dst}.conv2", src["conv2"])
+    if "time_emb_proj" in src:
+        _put_linear(sd, f"{dst}.time_emb_proj", src["time_emb_proj"])
+    if "conv_shortcut" in src:
+        _put_conv(sd, f"{dst}.conv_shortcut", src["conv_shortcut"])
+
+
+def _put_transformer2d(sd, dst, src, depth: int):
+    _put_norm(sd, f"{dst}.norm", src["norm"]["norm"])
+    _put_linear(sd, f"{dst}.proj_in", src["proj_in"])
+    _put_linear(sd, f"{dst}.proj_out", src["proj_out"])
+    for k in range(depth):
+        b, blk = f"{dst}.transformer_blocks.{k}", src[f"block_{k}"]
+        for n in ("norm1", "norm2", "norm3"):
+            _put_norm(sd, f"{b}.{n}", blk[n])
+        for a in ("attn1", "attn2"):
+            for proj in ("to_q", "to_k", "to_v"):
+                _put_linear(sd, f"{b}.{a}.{proj}", blk[a][proj])
+            _put_linear(sd, f"{b}.{a}.to_out.0", blk[a]["to_out"])
+        _put_linear(sd, f"{b}.ff.net.0.proj", blk["ff"]["proj_in"])
+        _put_linear(sd, f"{b}.ff.net.2", blk["ff"]["proj_out"])
+
+
+def unet_state_dict(flax_variables: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """{'params'} of ``rgie_tpu.diffusion.unet.UNet2DCondition`` -> diffusers
+    ``UNet2DConditionModel`` state dict (inverse of ``convert_unet_diffusers``).
+    ``cfg`` is the UNetConfig of either package."""
+    p = flax_variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _put_conv(sd, "conv_in", p["conv_in"])
+    _put_linear(sd, "time_embedding.linear_1", p["time_embed_0"])
+    _put_linear(sd, "time_embedding.linear_2", p["time_embed_2"])
+    _put_norm(sd, "conv_norm_out", p["norm_out"]["norm"])
+    _put_conv(sd, "conv_out", p["conv_out"])
+    if cfg.addition_embed_type == "text_time":
+        _put_linear(sd, "add_embedding.linear_1", p["add_embed_0"])
+        _put_linear(sd, "add_embedding.linear_2", p["add_embed_2"])
+    n_blocks = len(cfg.block_out_channels)
+    for bi, btype in enumerate(cfg.down_block_types):
+        for li in range(cfg.layers_per_block):
+            _put_resnet(sd, f"down_blocks.{bi}.resnets.{li}", p[f"down_{bi}_res_{li}"])
+            if btype == "CrossAttnDownBlock2D":
+                _put_transformer2d(sd, f"down_blocks.{bi}.attentions.{li}",
+                                   p[f"down_{bi}_attn_{li}"],
+                                   cfg.transformer_layers_per_block[bi])
+        if bi < n_blocks - 1:
+            _put_conv(sd, f"down_blocks.{bi}.downsamplers.0.conv",
+                      p[f"down_{bi}_downsample"]["conv"])
+    _put_resnet(sd, "mid_block.resnets.0", p["mid_res_0"])
+    _put_transformer2d(sd, "mid_block.attentions.0", p["mid_attn"],
+                       cfg.transformer_layers_per_block[-1])
+    _put_resnet(sd, "mid_block.resnets.1", p["mid_res_1"])
+    rev_tf = tuple(reversed(cfg.transformer_layers_per_block))
+    for bi, btype in enumerate(cfg.up_block_types):
+        for li in range(cfg.layers_per_block + 1):
+            _put_resnet(sd, f"up_blocks.{bi}.resnets.{li}", p[f"up_{bi}_res_{li}"])
+            if btype == "CrossAttnUpBlock2D":
+                _put_transformer2d(sd, f"up_blocks.{bi}.attentions.{li}",
+                                   p[f"up_{bi}_attn_{li}"], rev_tf[bi])
+        if bi < n_blocks - 1:
+            _put_conv(sd, f"up_blocks.{bi}.upsamplers.0.conv", p[f"up_{bi}_upsample"]["conv"])
+    return sd
+
+
+def vae_state_dict(flax_variables: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """{'params'} of ``rgie_tpu.diffusion.vae.AutoencoderKL`` -> diffusers
+    ``AutoencoderKL`` state dict (inverse of ``convert_vae_diffusers``): the
+    quant convs move back from the encoder and decoder to the top level."""
+    enc, dec = flax_variables["params"]["encoder"], flax_variables["params"]["decoder"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put_mid(dst, src):
+        _put_resnet(sd, f"{dst}.resnets.0", src["mid_res_0"])
+        attn = src["mid_attn"]
+        _put_norm(sd, f"{dst}.attentions.0.group_norm", attn["norm"]["norm"])
+        for proj in ("to_q", "to_k", "to_v"):
+            _put_linear(sd, f"{dst}.attentions.0.{proj}", attn[proj])
+        _put_linear(sd, f"{dst}.attentions.0.to_out.0", attn["to_out"])
+        _put_resnet(sd, f"{dst}.resnets.1", src["mid_res_1"])
+
+    n_blocks = len(cfg.block_out_channels)
+    _put_conv(sd, "encoder.conv_in", enc["conv_in"])
+    _put_norm(sd, "encoder.conv_norm_out", enc["norm_out"]["norm"])
+    _put_conv(sd, "encoder.conv_out", enc["conv_out"])
+    _put_conv(sd, "quant_conv", enc["quant_conv"])
+    put_mid("encoder.mid_block", enc)
+    for bi in range(n_blocks):
+        for li in range(cfg.layers_per_block):
+            _put_resnet(sd, f"encoder.down_blocks.{bi}.resnets.{li}", enc[f"down_{bi}_res_{li}"])
+        if bi < n_blocks - 1:
+            _put_conv(sd, f"encoder.down_blocks.{bi}.downsamplers.0.conv",
+                      enc[f"down_{bi}_downsample"])
+    _put_conv(sd, "post_quant_conv", dec["post_quant_conv"])
+    _put_conv(sd, "decoder.conv_in", dec["conv_in"])
+    _put_norm(sd, "decoder.conv_norm_out", dec["norm_out"]["norm"])
+    _put_conv(sd, "decoder.conv_out", dec["conv_out"])
+    put_mid("decoder.mid_block", dec)
+    for bi in range(n_blocks):
+        for li in range(cfg.layers_per_block + 1):
+            _put_resnet(sd, f"decoder.up_blocks.{bi}.resnets.{li}", dec[f"up_{bi}_res_{li}"])
+        if bi < n_blocks - 1:
+            _put_conv(sd, f"decoder.up_blocks.{bi}.upsamplers.0.conv", dec[f"up_{bi}_upsample"])
+    return sd
+
+
+def clip_text_state_dict(flax_variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params'} of ``rgie_tpu.diffusion.text_encoder.TextEncoderHidden`` ->
+    HF ``CLIPTextModel(WithProjection)`` state dict, ``text_model.`` prefix
+    included (inverse of ``convert_clip_text_hf``)."""
+    p = flax_variables["params"]
+    width = np.asarray(p["positional_embedding"]).shape[1]
+    sd: Dict[str, torch.Tensor] = {
+        "text_model.embeddings.token_embedding.weight": _t(p["token_embedding"]["embedding"]),
+        "text_model.embeddings.position_embedding.weight": _t(p["positional_embedding"]),
+    }
+    _put_norm(sd, "text_model.final_layer_norm", p["ln_final"])
+    layers = sum(1 for k in p if str(k).startswith("resblock_"))
+    for i in range(layers):
+        src, dst = p[f"resblock_{i}"], f"text_model.encoder.layers.{i}"
+        _put_norm(sd, f"{dst}.layer_norm1", src["ln_1"])
+        _put_norm(sd, f"{dst}.layer_norm2", src["ln_2"])
+        attn = src["attn"]
+        for flax_name, hf_name in (("query", "q_proj"), ("key", "k_proj"), ("value", "v_proj")):
+            # flax MHA kernels (in, heads, head_dim) -> torch (out, in)
+            sd[f"{dst}.self_attn.{hf_name}.weight"] = _t(
+                np.asarray(attn[flax_name]["kernel"]).reshape(width, width).T)
+            sd[f"{dst}.self_attn.{hf_name}.bias"] = _t(
+                np.asarray(attn[flax_name]["bias"]).reshape(width))
+        sd[f"{dst}.self_attn.out_proj.weight"] = _t(
+            np.asarray(attn["out"]["kernel"]).reshape(width, width).T)
+        sd[f"{dst}.self_attn.out_proj.bias"] = _t(attn["out"]["bias"])
+        _put_linear(sd, f"{dst}.mlp.fc1", src["mlp"]["c_fc"])
+        _put_linear(sd, f"{dst}.mlp.fc2", src["mlp"]["c_proj"])
+    if "text_projection" in p:
+        sd["text_projection.weight"] = _dense(p["text_projection"])
+    return sd
+
+
+def midu_state_dict(flax_variables: Mapping[str, Any], is_sdxl: bool = False
+                    ) -> Dict[str, torch.Tensor]:
+    """{'params'} of ``rgie_tpu.models.midu.MiduSD`` / ``MiduSDXL`` -> the
+    reference's ``nn.Sequential`` state dict (inverse of ``convert_midu``):
+    the first linear layer's input rows go back from the NHWC (h, w, c)
+    flatten to torch's channel-major one."""
+    p = flax_variables["params"]
+    conv_ixs = (0, 3, 6, 9) if is_sdxl else (0, 3)
+    lin_ixs = (13, 15) if is_sdxl else (7, 9)
+    sd: Dict[str, torch.Tensor] = {}
+    for n, i in enumerate(conv_ixs):
+        _put_conv(sd, str(i), p[f"conv_{n}"])
+    flat_c = np.asarray(p[f"conv_{len(conv_ixs) - 1}"]["kernel"]).shape[-1]
+    for n, i in enumerate(lin_ixs):
+        w = np.asarray(p[f"dense_{n}"]["kernel"]).T  # (out, in)
+        if n == 0:
+            w = w.reshape(w.shape[0], 2, 2, flat_c).transpose(0, 3, 1, 2).reshape(w.shape[0], -1)
+        sd[f"{i}.weight"] = _t(w)
+        sd[f"{i}.bias"] = _t(p[f"dense_{n}"]["bias"])
     return sd

@@ -15,6 +15,7 @@ import torch
 
 from rgie_tpu.config import OptimizeConfig, ParamEditConfig
 from rgie_tpu.utils import torch_convert as TC
+from rgie_tpu_torch import config as PC
 from rgie_tpu_torch.engine import optimize as O
 from rgie_tpu_torch.engine import parametric as P
 from rgie_tpu_torch.ops import chain as CH
@@ -70,7 +71,9 @@ def stacks():
     rng = np.random.default_rng(0)
     images = rng.uniform(0, 1, (2, SIZE, SIZE, 3)).astype(np.float32)
     alphas = np.asarray([[0.2, 0.2], [-0.1, 0.1]], np.float32)
-    return dict(models=models, cfg=cfg, va_j=va_j, clip_j=clip_j, P_j=P_j,
+    cfg_t = PC.ParamEditConfig(optimize=PC.OptimizeConfig(num_steps=STEPS, learning_rate=0.05),
+                               input_size=SIZE, crop_size=SIZE)
+    return dict(models=models, cfg=cfg, cfg_t=cfg_t, va_j=va_j, clip_j=clip_j, P_j=P_j,
                 models_j=P_j.models_of(va_j, clip_j), images=images, alphas=alphas)
 
 
@@ -107,9 +110,10 @@ def test_edit_trajectory_matches_jax(rng, stacks):
         s["models_j"], jnp.asarray(s["images"]), jnp.asarray(s["alphas"]), jnp.asarray(x0))
 
     images, alphas = torch.from_numpy(s["images"]), torch.from_numpy(s["alphas"])
-    ctx = P.make_context(s["models"], cfg, images, alphas)
-    objective = P.make_objective(s["models"], cfg)
-    res = O.optimize(lambda v: objective(v, ctx), torch.from_numpy(x0), cfg.optimize)
+    cfg_t = s["cfg_t"]
+    ctx = P.make_context(s["models"], cfg_t, images, alphas)
+    objective = P.make_objective(s["models"], cfg_t)
+    res = O.optimize(lambda v: objective(v, ctx), torch.from_numpy(x0), cfg_t.optimize)
 
     losses_j = np.asarray(res_j.losses)
     losses = res.losses.numpy()
@@ -142,7 +146,9 @@ def test_batched_edit_matches_jax(stacks):
     res_j, _ = jax.jit(P_j.make_batched_edit(s["va_j"], s["clip_j"], cfg))(
         s["models_j"], jnp.asarray(s["images"]), jnp.asarray(s["alphas"]))
     images = torch.from_numpy(s["images"])
-    res, edited = P.make_batched_edit(s["models"], cfg)(images, torch.from_numpy(s["alphas"]))
+    cfg_t = PC.ParamEditConfig(optimize=PC.OptimizeConfig(num_steps=1, learning_rate=0.05),
+                               input_size=SIZE, crop_size=SIZE)
+    res, edited = P.make_batched_edit(s["models"], cfg_t)(images, torch.from_numpy(s["alphas"]))
     np.testing.assert_allclose(res.first_loss.numpy(), np.asarray(res_j.first_loss),
                                rtol=1e-4, atol=1e-5)
     va0 = P.make_evaluate(s["models"].va_loss)(images, edited)["va_original"].numpy()
