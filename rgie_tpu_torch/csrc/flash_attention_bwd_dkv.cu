@@ -8,22 +8,36 @@
 // :1121).
 //
 // Bound on this card: operations (8 N^2 d flops per (batch, head) against
-// 6 N d elements moved), in float32 on the CUDA cores. What the design does
-// about it: one block owns 64 key rows and walks the query tiles, so each
-// dK and dV element is summed by one thread in a fixed order: no atomics,
-// and the result is the same from run to run. Scores are recomputed from
-// the saved log-sum-exp and live in registers and shared memory only.
+// 6 N d elements moved): the tensor cores' rate for bfloat16 (1.39 ms at
+// (2, 5, 16384, 64)), the CUDA cores' for float32 (20.5 ms). In both kernels
+// a block owns its key rows and walks the query tiles, so each dK and dV
+// element is summed in a fixed order: no atomics, and the result is the same
+// from run to run. Scores are recomputed from the saved log-sum-exp. P and
+// dS are rounded to the inputs' type before the second products (the TPU
+// kernel's `p.T.astype(do.dtype)`, `ds.T.astype(do.dtype)`). Two kernels,
+// chosen by shape in the C entry point:
 //
-// Head widths above 64 are walked in 64-column chunks, the scores summed
-// over the chunks once and one 4x4 patch per chunk and output kept in
-// registers. Up to width 128 a block holds both dK and dV (64 registers).
-// At width 512 the two would take 256 registers a thread, so the work is
-// split over grid.z by output: the blocks of z = 0 sum dV (they need P only,
-// so they skip dO V^T), those of z = 1 sum dK. The Q K^T products are then
-// done twice (40 tile products per pair of tiles against the 32 a single
-// block would do), and nothing else is repeated. The edit never
-// differentiates the VAE, so only width 64, where K and V stay resident in
-// shared memory, is on its path.
+// 1. `flash_bwd_dkv_tc_kernel`: bfloat16, head widths that are multiples of
+//    8 up to 128 (the note above the kernel has the design: transposed score
+//    tiles by `wgmma`, P^T and dS^T from accumulator registers straight into
+//    the second products, K and V resident, Q / dO / lse / di through a
+//    `cp.async` ring fed by a third warpgroup). 384 threads, 168 registers
+//    each at launch (224 / 56 after `setmaxnreg`, no spill); dynamic shared
+//    memory 84 KB (widths up to 64) or 132 KB (up to 128). Measured at that
+//    shape on an NVIDIA H100 80GB HBM3 at 700 W (`chip_smoke.py`): 3.38 ms,
+//    2.4x its bound (the library's one backward call for dQ, dK and dV takes
+//    4.01 ms). The 64 x 64 `wgmma` shape (the widest the registers allow
+//    beside two accumulators) and the one barrier per tile are the open items.
+// 2. `flash_bwd_dkv_kernel`: float32 and the other bfloat16 widths, on the
+//    CUDA cores. Head widths above 64 are walked in 64-column chunks, the
+//    scores summed over the chunks once and one 4x4 patch per chunk and
+//    output kept in registers. Up to width 128 a block holds both dK and dV
+//    (64 registers). At width 512 the two would take 256 registers a thread,
+//    so the work is split over grid.z by output: the blocks of z = 0 sum dV
+//    (they need P only, so they skip dO V^T), those of z = 1 sum dK. The
+//    Q K^T products are then done twice (40 tile products per pair of tiles
+//    against the 32 a single block would do), and nothing else is repeated.
+//    The edit never differentiates the VAE, so only width 64 is on its path.
 
 #include "flash_attention_common.cuh"
 
@@ -110,8 +124,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       for (int bb = 0; bb < 4; ++bb) {
         const bool inside = (q0 + row < n) && (k0 + tx + 16 * bb < n);
         const float p = inside ? expf(s[a][bb] * scale - row_lse) : 0.f;
-        Ps[row * kPitch + tx + 16 * bb] = p;
-        dSs[row * kPitch + tx + 16 * bb] = p * (dp[a][bb] - row_di) * scale;
+        Ps[row * kPitch + tx + 16 * bb] = rounded_to_input<T>(p);
+        dSs[row * kPitch + tx + 16 * bb] = rounded_to_input<T>(p * (dp[a][bb] - row_di) * scale);
       }
     }
 
@@ -161,13 +175,281 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* d_o, con
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16, head widths that are multiples of 8 up to 128: the tensor cores.
+//
+// The tiles are computed transposed, keys as the accumulator's rows:
+//   S^T = K Q^T,  dP^T = V dO^T     (64 keys x 64 queries per warpgroup),
+// so that P^T and dS^T land in accumulator registers and are, rounded to
+// bfloat16, the A operands of dV += P^T dO and dK += dS^T Q, with dO and Q
+// read MN-major from the same tiles. lse and di index the fragment's columns.
+//
+// NATOM = 1 (widths up to 64): a block owns 128 keys, 64 per warpgroup.
+// NATOM = 2 (up to 128): dK and dV of 64 keys x 128 columns would take 128
+// registers beside the two score tiles, so a block owns 64 keys, both
+// warpgroups compute their scores, and each sums one 64-column half of dK
+// and dV. K and V stay resident; Q, dO, lse and di tiles of 64 queries go
+// through a three-stage ring of `cp.async` copies started by a third warpgroup, one
+// barrier per tile.
+//
+// A warpgroup overlaps its exponentials with its second products: with
+// P^T_t and dS^T_t packed in registers it starts the two score products of
+// tile t + 1 and the two sums of tile t together, waits for the scores
+// alone, and computes P^T_{t+1} and dS^T_{t+1} while the sums still run.
+// ---------------------------------------------------------------------------
+
+constexpr int kDkvQueries = 64;   // queries a tile
+constexpr int kDkvStages = 3;
+constexpr uint32_t kDkvQueryTileBytes = kDkvQueries * kRowBytes;
+
+// Every register a product of the coming stage reads or writes is fenced
+// before the stage's first `wgmma`: a register fence between two products of
+// one stage makes the assembler run them one after the other.
+__device__ __forceinline__ void open_stage(float (&st)[32], float (&dpt)[32],
+                                           float (&acc_dv)[32], float (&acc_dk)[32]) {
+  fence_registers(st);
+  fence_registers(dpt);
+  fence_registers(acc_dv);
+  fence_registers(acc_dk);
+  wgmma_fence();
+}
+
+// Start S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 keys.
+template <int NATOM>
+__device__ __forceinline__ void start_scores_t(float (&st)[32], float (&dpt)[32], uint32_t k_rows,
+                                               uint32_t v_rows, uint32_t key_tile_bytes,
+                                               uint32_t q_tiles, uint32_t do_tiles) {
+#pragma unroll
+  for (int ks = 0; ks < NATOM * 4; ++ks) {
+    const uint32_t key_atom = (ks >> 2) * key_tile_bytes;
+    const uint32_t query_atom = (ks >> 2) * kDkvQueryTileBytes;
+    const uint64_t step = (ks & 3) * kDescNextColumns16;
+    wgmma_m64n64k16_ss(st, tile_descriptor(k_rows + key_atom) + step,
+                       tile_descriptor(q_tiles + query_atom) + step, ks > 0);
+    wgmma_m64n64k16_ss(dpt, tile_descriptor(v_rows + key_atom) + step,
+                       tile_descriptor(do_tiles + query_atom) + step, ks > 0);
+  }
+  wgmma_commit();
+}
+
+// In place: st <- P^T = exp(S^T scale - lse), dpt <- dS^T = P^T (dP^T - di)
+// scale. Entry [4 j + i] is key row i / 2 of the thread's pair, query
+// 8 j + 2 (lane % 4) + i % 2 of the tile. Queries past n have zero Q and dO
+// rows and zero lse and di: their P is 1 and meets only zeros. Keys past n
+// only reach rows of dK and dV that are not stored.
+__device__ __forceinline__ void probabilities_t(float (&st)[32], float (&dpt)[32],
+                                                const float* lse_s, const float* di_s,
+                                                float scale, float scale2) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * (lane & 3));
+    const float2 d2 = *reinterpret_cast<const float2*>(di_s + 8 * j + 2 * (lane & 3));
+    const float neg_lse2[2] = {-l2.x * kLog2e, -l2.y * kLog2e};   // base 2, one fma a score
+    const float col_di[2] = {d2.x, d2.y};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = fast_exp2(fmaf(st[4 * j + i], scale2, neg_lse2[i & 1]));
+      st[4 * j + i] = p;
+      dpt[4 * j + i] = p * (dpt[4 * j + i] - col_di[i & 1]) * scale;
+    }
+  }
+}
+
+template <int NATOM>
+__global__ void __launch_bounds__(kTcThreads + kCopyThreads, 1)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                        const float* __restrict__ lse, const float* __restrict__ di,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int n,
+                        int width, Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+                        Strides sdv, float scale) {
+  constexpr int kKeys = NATOM == 1 ? 128 : 64;   // keys a block
+  constexpr uint32_t kKeyTileBytes = kKeys * kRowBytes;
+  // A stage: Q's atoms, dO's atoms, 64 lse, 64 di, rounded up to 1024 bytes.
+  constexpr uint32_t kStageBytes = 2 * NATOM * kDkvQueryTileBytes + 1024;
+  constexpr uint32_t kRowValues = 2 * NATOM * kDkvQueryTileBytes;   // lse, di within a stage
+  extern __shared__ char smem_raw[];
+  const uint32_t smem0 = smem_addr(smem_raw);
+  const uint32_t Ks = (smem0 + 1023u) & ~1023u;      // NATOM tiles
+  const uint32_t Vs = Ks + NATOM * kKeyTileBytes;    // NATOM tiles
+  const uint32_t ring = Vs + NATOM * kKeyTileBytes;  // kDkvStages stages
+  const char* ring_ptr = smem_raw + (ring - smem0);
+
+  const int wg = threadIdx.x >> 7;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.x * kKeys;
+  const int n_tiles = (n + kDkvQueries - 1) / kDkvQueries;
+
+  if (threadIdx.x >= kTcThreads) {
+    registers_dec<kCopyRegisters>();
+    // The copying warpgroup. It meets the multiplying warps at one barrier per
+    // tile: there tile t + 1 has arrived and tile t - 1 is no longer read,
+    // so the copy of tile t + 2 may overwrite its stage.
+    const int loader = threadIdx.x - kTcThreads;
+    const bf16* qb = q + b * sq.b + h * sq.h;
+    const bf16* kb = k + b * sk.b + h * sk.h;
+    const bf16* vb = v + b * sv.b + h * sv.h;
+    const bf16* dob = d_o + b * sdo.b + h * sdo.h;
+    const float* lse_b = lse + (long long)bh * n;
+    const float* di_b = di + (long long)bh * n;
+    auto load_queries = [&](int qt) {
+      if (qt < n_tiles) {
+        const uint32_t stage = ring + (qt % kDkvStages) * kStageBytes;
+        const int q0 = qt * kDkvQueries;
+#pragma unroll
+        for (int a = 0; a < NATOM; ++a) {
+          load_tile_async(stage + a * kDkvQueryTileBytes, qb, sq.n, q0, n, kDkvQueries,
+                          a * kAtom, width, loader, kCopyThreads);
+          load_tile_async(stage + (NATOM + a) * kDkvQueryTileBytes, dob, sdo.n, q0, n,
+                          kDkvQueries, a * kAtom, width, loader, kCopyThreads);
+        }
+#pragma unroll
+        for (int r = loader; r < kDkvQueries; r += kCopyThreads) {
+          const bool valid = q0 + r < n;
+          cp_async_4(stage + kRowValues + r * sizeof(float), valid ? lse_b + q0 + r : lse_b,
+                     valid);
+          cp_async_4(stage + kRowValues + (kDkvQueries + r) * sizeof(float),
+                     valid ? di_b + q0 + r : di_b, valid);
+        }
+      }
+      cp_async_commit();   // an empty group past the last tile keeps the count of groups
+    };
+#pragma unroll
+    for (int a = 0; a < NATOM; ++a) {
+      load_tile_async(Ks + a * kKeyTileBytes, kb, sk.n, k0, n, kKeys, a * kAtom, width, loader,
+                      kCopyThreads);
+      load_tile_async(Vs + a * kKeyTileBytes, vb, sv.n, k0, n, kKeys, a * kAtom, width, loader,
+                      kCopyThreads);
+    }
+    load_queries(0);
+    load_queries(1);
+    cp_async_wait_and_publish<1>();   // K, V and tile 0
+    __syncthreads();
+    for (int qt = 0; qt + 1 < n_tiles; ++qt) {
+      cp_async_wait_and_publish<0>();   // tile qt + 1
+      __syncthreads();
+      load_queries(qt + 2);
+    }
+    return;
+  }
+  registers_inc<kTcRegisters>();
+
+  const int key_row = NATOM == 1 ? wg * 64 : 0;   // this warpgroup's keys within the block
+  const int out_atom = NATOM == 1 ? 0 : wg;       // and its 64 columns of dK and dV
+
+  float acc_dv[32], acc_dk[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_dv[i] = acc_dk[i] = 0.f;
+  const float scale2 = scale * kLog2e;
+  const uint32_t k_rows = Ks + key_row * kRowBytes, v_rows = Vs + key_row * kRowBytes;
+
+  // Tile 0 alone: its scores, P^T_0 and dS^T_0 packed as A fragments.
+  float st[32], dpt[32];
+  uint32_t pa[4][4], dsa[4][4];
+  __syncthreads();
+  open_stage(st, dpt, acc_dv, acc_dk);
+  start_scores_t<NATOM>(st, dpt, k_rows, v_rows, kKeyTileBytes, ring,
+                        ring + NATOM * kDkvQueryTileBytes);
+  wgmma_wait<0>();
+  fence_registers(st);
+  fence_registers(dpt);
+  probabilities_t(st, dpt, reinterpret_cast<const float*>(ring_ptr + kRowValues),
+                  reinterpret_cast<const float*>(ring_ptr + kRowValues) + kDkvQueries, scale,
+                  scale2);
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    pack_fragment(pa[s], st, s);
+    pack_fragment(dsa[s], dpt, s);
+  }
+
+  // dV += P^T dO, dK += dS^T Q over this warpgroup's 64 columns, from the
+  // stage at byte offset `stage` of the ring.
+  auto start_sums = [&](uint32_t stage) {
+    const uint32_t Qs = ring + stage + out_atom * kDkvQueryTileBytes;
+    const uint32_t dOs = Qs + NATOM * kDkvQueryTileBytes;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      wgmma_m64n64k16_rs_tb(acc_dv, pa[s], tile_descriptor(dOs) + s * kDescNextRows16);
+      wgmma_m64n64k16_rs_tb(acc_dk, dsa[s], tile_descriptor(Qs) + s * kDescNextRows16);
+    }
+    wgmma_commit();
+  };
+
+  // No `wgmma` sits under a condition: the assembler runs the products of a
+  // stage one after the other when one of them does.
+  for (int qt = 0; qt + 1 < n_tiles; ++qt) {
+    // Tile qt + 1 has arrived, and both warpgroups are done with tile qt - 1.
+    const uint32_t next = ((qt + 1) % kDkvStages) * kStageBytes;
+    __syncthreads();
+    open_stage(st, dpt, acc_dv, acc_dk);
+    start_scores_t<NATOM>(st, dpt, k_rows, v_rows, kKeyTileBytes, ring + next,
+                          ring + next + NATOM * kDkvQueryTileBytes);
+    start_sums((qt % kDkvStages) * kStageBytes);
+    wgmma_wait<1>();   // the scores of tile qt + 1 are there; the sums of tile qt still run
+    fence_registers(st);
+    fence_registers(dpt);
+    const float* lse_s = reinterpret_cast<const float*>(ring_ptr + next + kRowValues);
+    probabilities_t(st, dpt, lse_s, lse_s + kDkvQueries, scale, scale2);
+    wgmma_wait<0>();
+    fence_fragments(pa);
+    fence_fragments(dsa);
+    fence_registers(acc_dv);
+    fence_registers(acc_dk);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      pack_fragment(pa[s], st, s);
+      pack_fragment(dsa[s], dpt, s);
+    }
+  }
+  // The last tile's sums.
+  open_stage(st, dpt, acc_dv, acc_dk);
+  start_sums(((n_tiles - 1) % kDkvStages) * kStageBytes);
+  wgmma_wait<0>();
+  fence_fragments(pa);
+  fence_fragments(dsa);
+  fence_registers(acc_dv);
+  fence_registers(acc_dk);
+
+  store_accumulator(dv + b * sdv.b + h * sdv.h, sdv.n, k0 + key_row, n, out_atom * kAtom, width,
+                    acc_dv, 1.f, 1.f);
+  store_accumulator(dk + b * sdk.b + h * sdk.h, sdk.n, k0 + key_row, n, out_atom * kAtom, width,
+                    acc_dk, 1.f, 1.f);
+}
+
+template <int NATOM>
+int launch_dkv_tc(const void* q, const void* k, const void* v, const void* d_o, const float* lse,
+                  const float* di, void* dk, void* dv, int batch, int heads, int n, int width,
+                  const long long* st, float scale, cudaStream_t stream) {
+  constexpr int kKeys = NATOM == 1 ? 128 : 64;
+  // K and V resident, the stages of (Q, dO, lse, di) rounded up to 1024
+  // bytes each, and the slack to align the first tile.
+  const size_t smem = (size_t)2 * NATOM * kKeys * kRowBytes +
+                      kDkvStages * ((size_t)2 * NATOM * kDkvQueryTileBytes + 1024) + 1024;
+  auto kernel = flash_bwd_dkv_tc_kernel<NATOM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kKeys - 1) / kKeys, batch * heads);
+  kernel<<<grid, kTcThreads + kCopyThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_o, lse, di, (bf16*)dk,
+      (bf16*)dv, heads, n, width, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+      Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]}, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace rgie
 
 // q, k, v, d_o, dk, dv: (batch, heads, n, width) with the width axis
 // contiguous; `strides` holds (batch, head, row) strides in elements for
 // them in that order (18 values). lse, di: (batch, heads, n) float32,
 // contiguous. Returns cudaGetLastError() (0 on success), or -1 for a width
-// or a grid the kernel does not take.
+// or a grid the kernel does not take. Dispatch by shape: bfloat16 with a
+// width that is a multiple of 8 up to 128 runs the tensor-core kernel (its
+// tensors 16-byte aligned, strides multiples of 8 elements); float32, and
+// every other bfloat16 width, the CUDA-core kernel.
 extern "C" int rgie_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* d_o, const float* lse, const float* di,
                                             void* dk, void* dv, int batch, int heads, int n,
@@ -181,6 +463,15 @@ extern "C" int rgie_flash_attention_bwd_dkv(const void* q, const void* k, const 
   return launch_dkv<T, C>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides, scale, \
                           s)
   if (is_bf16) {
+    const int atoms = atoms_for_width(width);
+    if (atoms == 1) {
+      return launch_dkv_tc<1>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
+                              scale, s);
+    }
+    if (atoms == 2) {
+      return launch_dkv_tc<2>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
+                              scale, s);
+    }
     if (chunks == 1) RGIE_DKV(__nv_bfloat16, 1);
     if (chunks == 2) RGIE_DKV(__nv_bfloat16, 2);
     RGIE_DKV(__nv_bfloat16, 8);

@@ -15,6 +15,10 @@
 // kernel: the scores are summed over the chunks once, and the block keeps one
 // 4x4 patch of dQ per chunk in registers (128 at width 512), so no product is
 // repeated; the price is that Q, dO, K and V are reloaded chunk by chunk.
+// dS is rounded to the inputs' type before dS K (the TPU kernel's
+// `ds.astype(k.dtype)`; the identity for float32). bfloat16 inputs still take
+// this kernel at every width: its tensor-core version is the next step, on
+// the helpers the forward and dK/dV kernels share in the header.
 
 #include "flash_attention_common.cuh"
 
@@ -84,7 +88,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int bb = 0; bb < 4; ++bb) {
         const bool inside = (q0 + row < n) && (k0 + tx + 16 * bb < n);
         const float p = inside ? expf(s[a][bb] * scale - row_lse[a]) : 0.f;
-        dSs[row * kPitch + tx + 16 * bb] = p * (dp[a][bb] - row_di[a]) * scale;
+        dSs[row * kPitch + tx + 16 * bb] =
+            rounded_to_input<T>(p * (dp[a][bb] - row_di[a]) * scale);
       }
     }
 

@@ -1,9 +1,18 @@
 // Shared pieces of the flash-attention kernels (forward, backward dK/dV,
-// backward dQ): tile geometry, global<->shared tile copies for float32 and
-// bfloat16, and the three 64x64x64 register-blocked tile products.
+// backward dQ). Two sets:
 //
-// Geometry, the same in all three kernels. A block has 256 threads seen as a
-// 16x16 grid (ty = tid / 16, tx = tid % 16). Every tile in shared memory is
+// 1. The CUDA-core set (float32 arithmetic): tile geometry, global<->shared
+//    tile copies for float32 and bfloat16, and the three 64x64x64
+//    register-blocked tile products. It serves float32 inputs, bfloat16 head
+//    widths the tensor-core kernels do not take, and the dQ kernel.
+// 2. The tensor-core set (bfloat16, at the end of the file): 128-byte
+//    swizzled bfloat16 tiles filled by 16-byte `cp.async` copies, `wgmma`
+//    shared-memory descriptors, the `wgmma` instructions themselves, and the
+//    accumulator -> A-fragment packing with its rounding to bfloat16.
+//
+// Geometry of the CUDA-core set, the same in all three kernels. A block has
+// 256 threads seen as a 16x16 grid (ty = tid / 16, tx = tid % 16). Every tile
+// in shared memory is
 // 64 rows by 64 floats with a row pitch of 68 floats: 68 keeps each row
 // 16-byte aligned for float4 reads and spreads 16 consecutive rows over all
 // 32 banks (68 mod 32 = 4, a float4 covers 4 banks, so 8 rows fill the banks
@@ -15,9 +24,10 @@
 // not a multiple of 64 is zero-filled up to the next chunk in shared memory
 // (zeros add nothing to a dot product) and the fill is never stored.
 //
-// Arithmetic is float32 on the CUDA cores for both input types: bfloat16
-// tensors are widened on the way into shared memory and rounded once on the
-// way out.
+// Arithmetic of the CUDA-core set is float32 for both input types: bfloat16
+// tensors are widened on the way into shared memory and rounded on the way
+// out; in between only P and dS are rounded to bfloat16 (`rounded_to_input`),
+// where every bfloat16 kernel and the plain version round.
 
 #pragma once
 
@@ -64,6 +74,20 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   raw.x = *reinterpret_cast<const uint32_t*>(&lo);
   raw.y = *reinterpret_cast<const uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// A float32 value as the second product takes it: rounded to the inputs'
+// type (P and dS, as the TPU kernel's `p.astype(v.dtype)` and
+// `ds.astype(k.dtype)`), which for float32 inputs is the identity.
+template <typename T>
+__device__ __forceinline__ float rounded_to_input(float x);
+template <>
+__device__ __forceinline__ float rounded_to_input<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float rounded_to_input<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // Copy rows [row0, row0 + 64) and columns [col0, col0 + 64) of a
@@ -201,6 +225,271 @@ inline int chunks_for_width(int width) {
   if (width <= 128) return 2;
   if (width <= 512) return 8;
   return 0;
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core set: bfloat16 operands, float32 sums, `wgmma` (sm_90a).
+//
+// A tile in shared memory is R rows of 64 bfloat16 (one 128-byte row per tile
+// row, R a multiple of 8, the tile 1024-byte aligned), its 16-byte chunks
+// swizzled: chunk c of row r is stored at chunk c ^ (r % 8). That is the
+// 128-byte swizzle a `wgmma` descriptor names, and the same bytes serve two
+// readings of the tile:
+//   - K-major (the product sums over the tile's columns: Q K^T, K Q^T,
+//     V dO^T): 8-row groups 1024 bytes apart (SBO); the next 16 columns are
+//     32 bytes further (descriptor + 2);
+//   - MN-major, `tnspB` (the product sums over the tile's rows: P V, P^T dO,
+//     dS^T Q): the 64 columns are one swizzle atom, 8-row groups again 1024
+//     bytes apart; the next 16 rows are 2048 bytes further (descriptor + 128).
+// A head wider than 64 is held as two such tiles ("atoms"), columns 0-63 and
+// 64-127; columns past the head width are zero-filled.
+//
+// A block is two warpgroups (256 threads) that multiply and a third that
+// starts every copy: a warp that starts 16-byte copies faster than the L2
+// cache serves them stalls on them, and the multiplying warps should not
+// (`setmaxnreg` moves the third's spare registers to the other two). In a
+// warpgroup, warp w owns rows
+// 16 w .. 16 w + 15 of a 64-row accumulator; lane l holds, for every 8
+// columns j, d[4 j + 0..1] = (row l / 4, columns 8 j + 2 (l % 4) + 0..1) and
+// d[4 j + 2..3] = the same columns of row l / 4 + 8. Two neighbouring column
+// groups of an accumulator, rounded to bfloat16 and packed in pairs, are
+// exactly the A fragment of one 16-deep `wgmma` step: scores never leave the
+// registers between the first and the second product.
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kTcThreads = 256;      // two warpgroups that multiply
+constexpr int kCopyThreads = 128;    // and a third that copies for them
+// Registers a thread: a block of 384 threads starts with 168 each; the
+// copying warpgroup gives back all but 56 and the multiplying ones take 224
+// ((168 - 56) * 128 = (224 - 168) * 256).
+constexpr int kCopyRegisters = 56;
+constexpr int kTcRegisters = 224;
+constexpr int kAtom = 64;            // bfloat16 elements of one 128-byte tile row
+constexpr int kRowBytes = 128;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Byte offset of 16-byte chunk `chunk` (0..7) of row `row` in a swizzled tile.
+__device__ __forceinline__ uint32_t swizzled_offset(int row, int chunk) {
+  return (uint32_t)(row * kRowBytes + ((chunk ^ (row & 7)) << 4));
+}
+
+// 16-byte asynchronous copy global -> shared; with `valid` false nothing is
+// read and the 16 bytes become zeros.
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, bool valid) {
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  const int bytes = valid ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's groups of copies are still on their
+// way, then make the arrived ones visible to `wgmma`, which reads shared
+// memory through the asynchronous proxy. A barrier follows.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_and_publish() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Start the copy of rows [row0, row0 + rows) and columns [col0, col0 + 64) of
+// a (n_rows, width) bfloat16 matrix into a swizzled tile, shared out over the
+// `loaders` threads of which this one is number `loader`. Rows past n_rows
+// and columns past `width` (a multiple of 8) become zeros.
+__device__ __forceinline__ void load_tile_async(uint32_t tile, const bf16* base, long long stride,
+                                                int row0, int n_rows, int rows, int col0,
+                                                int width, int loader, int loaders) {
+  for (int idx = loader; idx < rows * 8; idx += loaders) {
+    const int r = idx >> 3, c = idx & 7;
+    const bool valid = row0 + r < n_rows && col0 + c * 8 < width;
+    const bf16* src = valid ? base + (long long)(row0 + r) * stride + col0 + c * 8 : base;
+    cp_async_16(tile + swizzled_offset(r, c), src, valid);
+  }
+}
+
+// The `wgmma` descriptor of a swizzled tile (or of a part of it that starts
+// at a multiple of 8 rows): 128-byte swizzle, 8-row groups 1024 bytes apart.
+// The leading offset is not read when the other dimension is one atom.
+__device__ __forceinline__ uint64_t tile_descriptor(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
+         ((uint64_t)1 << 62);
+}
+constexpr uint64_t kDescNextColumns16 = 2;   // K-major: 16 columns = 32 bytes
+constexpr uint64_t kDescNextRows16 = 128;    // MN-major: 16 rows = 2048 bytes
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of products are still running
+// (groups finish in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Give back (`dec`) or take (`inc`) registers, a whole warpgroup at once.
+template <int N>
+__device__ __forceinline__ void registers_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void registers_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// 2^x on the special-function unit in one instruction (relative error 2^-22,
+// results below 2^-126 become 0): the softmax needs no more, and `exp2f`
+// costs four more instructions for the range it adds.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keep the compiler from moving reads or writes of these registers across
+// the asynchronous products that use them.
+template <int N>
+__device__ __forceinline__ void fence_registers(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for A fragments: placed after the wait, it keeps their registers
+// from being reused while a product still reads them.
+template <int S>
+__device__ __forceinline__ void fence_fragments(uint32_t (&a)[S][4]) {
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[s][i])::"memory");
+  }
+}
+
+#define RGIE_F8(d, o)                                                                     \
+  "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]),         \
+      "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
+#define RGIE_REGS_0_31                                                                    \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define RGIE_REGS_32_63                                                                   \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// d (64 x 128) = A (64 x 16, K-major tile) . B^T (128 x 16, K-major tile),
+// added to d when `accumulate` is non-zero.
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" RGIE_REGS_0_31 ", " RGIE_REGS_32_63 "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : RGIE_F8(d, 0), RGIE_F8(d, 8), RGIE_F8(d, 16), RGIE_F8(d, 24), RGIE_F8(d, 32),
+        RGIE_F8(d, 40), RGIE_F8(d, 48), RGIE_F8(d, 56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64) = A (64 x 16, K-major tile) . B^T (64 x 16, K-major tile).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" RGIE_REGS_0_31 "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : RGIE_F8(d, 0), RGIE_F8(d, 8), RGIE_F8(d, 16), RGIE_F8(d, 24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64) += A (64 x 16, a register fragment) . B (16 x 64, 16 rows of
+// an MN-major tile).
+__device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                                      uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" RGIE_REGS_0_31 "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : RGIE_F8(d, 0), RGIE_F8(d, 8), RGIE_F8(d, 16), RGIE_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Two float32 values rounded to bfloat16 (to nearest even), `lo` in the low
+// half: the rounding of P and dS to the inputs' type before the second
+// product, as the TPU kernel's `p.astype(v.dtype)` and `ds.astype(k.dtype)`.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Columns [16 s, 16 s + 16) of an accumulator as the A fragment of one
+// 16-deep step.
+template <int N>
+__device__ __forceinline__ void pack_fragment(uint32_t (&a)[4], const float (&d)[N], int s) {
+  a[0] = pack_bf16(d[8 * s + 0], d[8 * s + 1]);
+  a[1] = pack_bf16(d[8 * s + 2], d[8 * s + 3]);
+  a[2] = pack_bf16(d[8 * s + 4], d[8 * s + 5]);
+  a[3] = pack_bf16(d[8 * s + 6], d[8 * s + 7]);
+}
+
+// Store a warpgroup's 64 x 64 accumulator, each thread's first row times
+// `scale_lo` and its second (8 rows below) times `scale_hi`, as
+// columns [col0, col0 + 64) of rows [row0, row0 + 64) of a (n_rows, width)
+// bfloat16 matrix, skipping what lies outside it (`width` is even).
+__device__ __forceinline__ void store_accumulator(bf16* base, long long stride, int row0,
+                                                  int n_rows, int col0, int width,
+                                                  const float (&d)[32], float scale_lo,
+                                                  float scale_hi) {
+  const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + warp * 16 + (lane >> 2) + 8 * h;
+    const float f = h ? scale_hi : scale_lo;
+    if (r < n_rows) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = col0 + 8 * j + 2 * (lane & 3);
+        if (c < width) {
+          *reinterpret_cast<uint32_t*>(base + (long long)r * stride + c) =
+              pack_bf16(d[4 * j + 2 * h] * f, d[4 * j + 2 * h + 1] * f);
+        }
+      }
+    }
+  }
+}
+
+// The tensor-core kernels take bfloat16 head widths that are multiples of 8
+// up to 128: 1 or 2 atoms. Returns 0 for any other width.
+inline int atoms_for_width(int width) {
+  if (width <= 0 || width % 8 != 0 || width > 128) return 0;
+  return width <= 64 ? 1 : 2;
 }
 
 }  // namespace rgie

@@ -105,6 +105,26 @@ def gaussian_kernel1d(sigma: torch.Tensor, size: int) -> torch.Tensor:
     return g / torch.sum(g, dim=-1, keepdim=True)
 
 
+def _reflect_index(size: int, pad: int, device) -> torch.Tensor:
+    """Source index of every position of an axis of ``size`` padded by ``pad``
+    on both sides, reflecting about the edge samples as often as the pad needs
+    (``jnp.pad(mode="reflect")``: period ``2 * (size - 1)``)."""
+    if size == 1:
+        return torch.zeros(1 + 2 * pad, dtype=torch.long, device=device)
+    period = 2 * (size - 1)
+    idx = torch.remainder(torch.arange(-pad, size + pad, device=device), period)
+    return torch.where(idx >= size, period - idx, idx)
+
+
+def _pad_reflect(x: torch.Tensor, pad_h: int, pad_w: int) -> torch.Tensor:
+    """Reflect padding of the last two axes. ``F.pad`` refuses a pad that
+    reaches the extent; there the reflected index is gathered instead."""
+    if pad_h < x.shape[-2] and pad_w < x.shape[-1]:
+        return F.pad(x, (pad_w, pad_w, pad_h, pad_h), mode="reflect")
+    x = x.index_select(-2, _reflect_index(x.shape[-2], pad_h, x.device))
+    return x.index_select(-1, _reflect_index(x.shape[-1], pad_w, x.device))
+
+
 def _depthwise_sep(image: torch.Tensor, gv: torch.Tensor, gh: torch.Tensor) -> torch.Tensor:
     """Reflect-padded 2D correlation of an NHWC batch with the rank-1 kernel
     gv[:, None] * gh[None, :]. ``gv``/``gh`` are (K,) or per image (B, K);
@@ -112,7 +132,7 @@ def _depthwise_sep(image: torch.Tensor, gv: torch.Tensor, gh: torch.Tensor) -> t
     b, h, w, c = image.shape
     kv, kh = gv.shape[-1], gh.shape[-1]
     x = image.permute(0, 3, 1, 2).reshape(1, b * c, h, w)
-    x = F.pad(x, (kh // 2, kh // 2, kv // 2, kv // 2), mode="reflect")
+    x = _pad_reflect(x, kv // 2, kh // 2)
 
     def taps(g):  # -> (B*C,) rows of taps, image-major like the folded channels
         return g.expand(b, -1).repeat_interleave(c, dim=0) if g.ndim == 2 else g.expand(b * c, -1)
@@ -125,7 +145,7 @@ def _depthwise_sep(image: torch.Tensor, gv: torch.Tensor, gh: torch.Tensor) -> t
 def apply_gaussian_blur(image: torch.Tensor, p, kernel_size: int = 25) -> torch.Tensor:
     """kornia gaussian_blur2d((25, 25), sigma=max(p, 0), reflect border),
     clamped (image_transformations.py:112-123). Separable: a vertical then a
-    horizontal pass. Needs H, W > kernel_size // 2 (reflect padding)."""
+    horizontal pass. Any H and W (the reflection repeats on tiny images)."""
     sigma = maximum(torch.as_tensor(p, dtype=image.dtype, device=image.device), 0.0)
     g = gaussian_kernel1d(sigma, kernel_size)
     return clip(_depthwise_sep(image, g, g), 0.0, 1.0)

@@ -16,6 +16,21 @@ Dispatch: CPU tensors run ``reference_flash_attention`` (tiled, the same
 online softmax, the same log-sum-exp residual, a hand-written backward with
 the kernels' formulas); CUDA tensors launch the kernels or raise. There is
 no fallback between the two.
+
+Inside the C entry points of the forward and the dK/dV kernel a second
+dispatch goes by shape (``tensor_core_route``): bfloat16 inputs whose head
+width is a multiple of 8 up to 128 multiply on the tensor cores (``wgmma``,
+bfloat16 tiles in shared memory, ``cp.async`` ring); float32 inputs and every
+other bfloat16 width (multiples of 4 that are not of 8, and 128 < d <= 512,
+the VAE's single 512-wide head) run the float32 CUDA-core kernels. The dQ
+kernel is the CUDA-core one for every shape. A launch that fails raises.
+
+Rounding in bfloat16, as in the TPU kernels: the products take bfloat16
+operands and sum in float32; the probabilities P and the score gradients dS
+are rounded to bfloat16 before the second product (``p.astype(v.dtype)``,
+``ds.astype(k.dtype)`` there). Row maxima, row sums, the log-sum-exp and
+``di`` stay float32. The plain version rounds at the same points; for float32
+inputs the rounding is the identity.
 """
 
 from __future__ import annotations
@@ -46,6 +61,12 @@ def head_width_supported(width: int) -> bool:
     return 0 < width <= MAX_HEAD_WIDTH and width % 4 == 0
 
 
+def tensor_core_route(dtype: torch.dtype, width: int) -> bool:
+    """Whether the forward and dK/dV entry points run their tensor-core kernel
+    for this type and head width (the rule is repeated in the C sources)."""
+    return dtype == torch.bfloat16 and 0 < width <= 128 and width % 8 == 0
+
+
 def flash_self_attention_ok(n: int, m: int, dim_head: int) -> bool:
     """The attention modules' gate: self-attention (``n == m``) over a long
     sequence with a head width the kernels take. Anything else (the 77-key
@@ -65,7 +86,7 @@ def reference_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(o, lse)`` for ``(B, H, N, d)`` inputs: ``o = softmax(q k^T *
     sm_scale) v`` in the inputs' type and the float32 row log-sum-exp ``(B, H,
     N)``. Walks key tiles with the online softmax as the forward kernel does;
-    sums in float32."""
+    sums in float32; P is rounded to the inputs' type before ``P v``."""
     qf, kf, vf = q.float(), k.float(), v.float()
     n, m = q.shape[2], k.shape[2]
     outs, lses = [], []
@@ -80,11 +101,19 @@ def reference_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(row_m - m_new)
             row_l = row_l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + torch.matmul(p, vf[:, :, k0:k0 + block_k])
+            acc = acc * alpha[..., None] + torch.matmul(_rounded(p, q.dtype),
+                                                        vf[:, :, k0:k0 + block_k])
             row_m = m_new
         outs.append(acc / row_l[..., None])
         lses.append(row_m + torch.log(row_l))
     return torch.cat(outs, dim=2).to(q.dtype), torch.cat(lses, dim=2)
+
+
+def _rounded(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Float32 ``x`` rounded to ``dtype`` and widened again: where the kernels
+    hand P and dS to the second product in the inputs' type. The identity
+    (the same tensor) for float32."""
+    return x.to(dtype).float()
 
 
 def _row_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -96,7 +125,8 @@ def reference_flash_attention_bwd_dkv(q, k, v, do, lse, di, sm_scale: float,
                                       block_q: int = 512, block_k: int = 512):
     """``(dk, dv)`` as the dK/dV kernel computes them: per key tile, a walk
     over the query tiles with ``p = exp(s - lse)``, ``dv += p^T do``,
-    ``ds = p * (do v^T - di) * sm_scale``, ``dk += ds^T q``."""
+    ``ds = p * (do v^T - di) * sm_scale``, ``dk += ds^T q``; ``p`` and ``ds``
+    enter their products rounded to the inputs' type."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     dks, dvs = [], []
     for k0 in range(0, k.shape[2], block_k):
@@ -106,10 +136,10 @@ def reference_flash_attention_bwd_dkv(q, k, v, do, lse, di, sm_scale: float,
             sl = slice(q0, q0 + block_q)
             p = torch.exp(torch.matmul(qf[:, :, sl], kt.transpose(-1, -2)) * sm_scale
                           - lse[:, :, sl, None])
-            dv = dv + torch.matmul(p.transpose(-1, -2), dof[:, :, sl])
+            dv = dv + torch.matmul(_rounded(p, q.dtype).transpose(-1, -2), dof[:, :, sl])
             dp = torch.matmul(dof[:, :, sl], vt.transpose(-1, -2))
             ds = p * (dp - di[:, :, sl, None]) * sm_scale
-            dk = dk + torch.matmul(ds.transpose(-1, -2), qf[:, :, sl])
+            dk = dk + torch.matmul(_rounded(ds, q.dtype).transpose(-1, -2), qf[:, :, sl])
         dks.append(dk)
         dvs.append(dv)
     return torch.cat(dks, dim=2).to(k.dtype), torch.cat(dvs, dim=2).to(v.dtype)
@@ -118,7 +148,7 @@ def reference_flash_attention_bwd_dkv(q, k, v, do, lse, di, sm_scale: float,
 def reference_flash_attention_bwd_dq(q, k, v, do, lse, di, sm_scale: float,
                                      block_q: int = 512, block_k: int = 512):
     """``dq`` as the dQ kernel computes it: per query tile, a walk over the
-    key tiles with ``dq += ds k``."""
+    key tiles with ``dq += ds k``, ``ds`` rounded to the inputs' type."""
     qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
     dqs = []
     for q0 in range(0, q.shape[2], block_q):
@@ -130,7 +160,7 @@ def reference_flash_attention_bwd_dq(q, k, v, do, lse, di, sm_scale: float,
                           - lse[:, :, sl, None])
             dp = torch.matmul(dof[:, :, sl], vt.transpose(-1, -2))
             ds = p * (dp - di[:, :, sl, None]) * sm_scale
-            dq = dq + torch.matmul(ds, kt)
+            dq = dq + torch.matmul(_rounded(ds, q.dtype), kt)
         dqs.append(dq)
     return torch.cat(dqs, dim=2).to(q.dtype)
 
@@ -170,14 +200,26 @@ def _kernel(source: str, symbol: str):
     return fn
 
 
+def load_width(dtype: torch.dtype, width: int) -> int:
+    """Elements a kernel loads at once from a tensor of this type and head
+    width: 16 bytes (4 float32, 8 bfloat16 on the tensor-core route), or the
+    4 bfloat16 (8 bytes) of the CUDA-core kernels for the other widths."""
+    if dtype == torch.bfloat16:
+        return 8 if tensor_core_route(dtype, width) else 4
+    return 4
+
+
 def _strided(t: torch.Tensor) -> torch.Tensor:
     """``t`` as the kernels read it: width axis contiguous, the other strides
-    multiples of 4 elements and the base 16-byte aligned (they load 4
-    elements at a time). A view that already is (the ``(B, N, H, d)``
-    projections seen as ``(B, H, N, d)``) is read in place."""
-    ok = (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:3])
+    multiples of the elements one load takes (``load_width``) and the base
+    16-byte aligned. A view that already is (the ``(B, N, H, d)`` projections
+    seen as ``(B, H, N, d)``) is read in place; anything else is copied
+    (``clone``, since ``contiguous()`` hands back a contiguous tensor as it
+    is, misaligned base included)."""
+    step = load_width(t.dtype, t.shape[-1])
+    ok = (t.stride(-1) == 1 and all(s % step == 0 for s in t.stride()[:3])
           and t.data_ptr() % 16 == 0)
-    return t if ok else t.contiguous()
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
 
 
 def _empty_like_heads_last(t: torch.Tensor) -> torch.Tensor:

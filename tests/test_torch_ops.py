@@ -116,6 +116,23 @@ def test_per_image_parameters_match_one_image_at_a_time(rng):
         np.testing.assert_allclose(got[b:b + 1], np.asarray(expect), **VAL)
 
 
+@pytest.mark.parametrize("size", [5, 12, 13])
+def test_gaussian_blur_on_tiny_images(rng, size):
+    """At H or W <= 12 the 12-pixel reflect pad reaches the extent: the
+    reflection repeats, as ``jnp.pad`` does it. Values and gradients."""
+    x = _image(rng, (2, size, size + 1, 3))
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    val_j = F_j.apply_gaussian_blur(jnp.asarray(x), jnp.asarray(1.5))
+    gx_j, gp_j = jax.grad(lambda img, q: jnp.sum(F_j.apply_gaussian_blur(img, q) * w),
+                          argnums=(0, 1))(jnp.asarray(x), jnp.asarray(1.5))
+    xt, pt = _t(x, True), _t(1.5, True)
+    out = F.apply_gaussian_blur(xt, pt)
+    torch.sum(out * _t(w)).backward()
+    np.testing.assert_allclose(_np(out), np.asarray(val_j), **VAL)
+    np.testing.assert_allclose(_np(xt.grad), np.asarray(gx_j), **GRAD)
+    np.testing.assert_allclose(_np(pt.grad), np.asarray(gp_j), **GRAD)
+
+
 # ---------------------------------------------------------------------------
 # Geometry
 # ---------------------------------------------------------------------------
