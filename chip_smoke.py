@@ -16,12 +16,14 @@ Phases (every check raises; nothing is caught):
    (4, 1024, 1024, 3) and a ragged (1, 1000, 760, 3), max abs error <= 2e-5
    (the tolerance of tests/test_pallas.py). K2 (flash attention forward,
    backward dK/dV, backward dQ): the UNet's (2, 5, 16384, 64), the VAE's
-   (1, 1, 16384, 512) and a ragged (1, 5, 9000, 64), in float32 and
-   bfloat16; tolerances in ``K2_TOLERANCE`` below. Kernel and plain version
-   are timed with CUDA events in alternation; one PyTorch call that computes
-   the same function (``scaled_dot_product_attention`` and its autograd
-   backward) is timed beside them as a yardstick only. Kernel and matmul
-   routes are also timed at (2, 10, 4096, 64), below the modules' gate.
+   (1, 1, 16384, 512), the ragged (1, 5, 9000, 64) and (1, 1, 2100, 512),
+   and widths 32, 128, 36 and 256, in float32 and bfloat16; tolerances in
+   ``K2_TOLERANCE`` below; the route of each of the three kernels is printed
+   per shape. Kernel and plain version are timed with CUDA events in
+   alternation; one PyTorch call that computes the same function
+   (``scaled_dot_product_attention`` and its autograd backward) is timed
+   beside them as a yardstick only. Kernel and matmul routes are also timed
+   at (2, 10, 4096, 64), below the modules' gate, in both types.
 3. Slice A's path: the parametric-edit CLI's per-batch function
    (``edit_batch``) on 4 random 480x480 images: ResNet-50 ten-crop 480/448
    regressor and CLIP ViT-B/32 at 224 with random weights from the seed, 100
@@ -156,7 +158,8 @@ def rel_err(got, expect):
 def flash_attention_phase(device, card):
     """Phase 2 for K2: checks at the paths' shapes in both types, then
     timings. Returns the three entries of the ``kernels`` line (launches are
-    filled in by the path phase)."""
+    filled in by the path phase; the forward's entry also carries the times
+    of its wide kernel at the VAE's shape)."""
     import torch.nn.functional as F
 
     from rgie_tpu_torch.ops.kernels import flash_attention as FA
@@ -180,7 +183,7 @@ def flash_attention_phase(device, card):
     timings = {}
     unet_shape, vae_shape = (2, 5, 16384, 64), (1, 1, 16384, 512)
     for shape in [unet_shape, vae_shape, (1, 5, 9000, 64), (2, 3, 1000, 32), (1, 2, 2100, 128),
-                  (1, 2, 1000, 36)]:
+                  (1, 2, 1000, 36), (1, 1, 2100, 512), (1, 2, 1000, 256)]:
         for dtype, tol in K2_TOLERANCE.items():
             q, k, v, do = make(shape, dtype, shape[2] + shape[3])
             scale = 1.0 / shape[3] ** 0.5
@@ -197,8 +200,10 @@ def flash_attention_phase(device, card):
                 e_out /= float(o_ref.float().abs().max())
             e_lse = float((lse - lse_ref).abs().max())
             e_dq, e_dk, e_dv = rel_err(dq, dq_ref), rel_err(dk, dk_ref), rel_err(dv, dv_ref)
-            route = "tensor cores" if FA.tensor_core_route(dtype, shape[3]) else "CUDA cores"
-            print(f"flash attention {shape} {dtype} (fwd, dK/dV on the {route}): out {e_out:.3e}, "
+            routes = ", ".join(
+                f"{kn} on the " + ("tensor" if FA.tensor_core_route(kn, dtype, shape[3]) else "CUDA")
+                + " cores" for kn in FA.KERNELS)
+            print(f"flash attention {shape} {dtype} ({routes}): out {e_out:.3e}, "
                   f"lse {e_lse:.3e}, dq {e_dq:.3e}, dk {e_dk:.3e}, dv {e_dv:.3e}")
             check(e_out <= tol["out"] and e_lse <= tol["lse"],
                   f"flash attention forward disagrees with its plain version at {shape} {dtype}")
@@ -243,24 +248,27 @@ def flash_attention_phase(device, card):
                   f"{bounds['dq'][0]:.3f}; library sdpa backward (dq, dk, dv at once) "
                   f"{dqt[2]:.3f}")
 
-    # Below the gate: the kernel route against the modules' matmul route.
+    # Below the gate: the kernel route against the modules' matmul route, in
+    # both types (the gate's threshold is recorded against them, not moved).
     shape = (2, 10, 4096, 64)
-    q, k, v, do = make(shape, torch.float32, 7)
     scale = 1.0 / 8.0
 
     def matmul_route(q, k, v):
         attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) / 8.0, dim=-1)
         return torch.matmul(attn, v)
 
-    ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
-    small = time_group([
-        lambda: FA.flash_attention(q, k, v, sm_scale=scale), lambda: matmul_route(q, k, v),
-        lambda: torch.autograd.grad(FA.flash_attention(ql, kl, vl, sm_scale=scale),
-                                    (ql, kl, vl), do),
-        lambda: torch.autograd.grad(matmul_route(ql, kl, vl), (ql, kl, vl), do)], 1, 5)
-    print(f"attention routes at {shape} float32 ms on {card}: forward kernel {small[0]:.3f} "
-          f"matmul {small[1]:.3f}; forward+backward kernel {small[2]:.3f} matmul {small[3]:.3f}")
-    del q, k, v, do, ql, kl, vl
+    for dtype in K2_TOLERANCE:
+        q, k, v, do = make(shape, dtype, 7)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        small = time_group([
+            lambda: FA.flash_attention(q, k, v, sm_scale=scale), lambda: matmul_route(q, k, v),
+            lambda: torch.autograd.grad(FA.flash_attention(ql, kl, vl, sm_scale=scale),
+                                        (ql, kl, vl), do),
+            lambda: torch.autograd.grad(matmul_route(ql, kl, vl), (ql, kl, vl), do)], 1, 5)
+        print(f"attention routes at {shape} {dtype} ms on {card}: forward kernel {small[0]:.3f} "
+              f"matmul {small[1]:.3f}; forward+backward kernel {small[2]:.3f} matmul "
+              f"{small[3]:.3f}")
+        del q, k, v, do, ql, kl, vl
     q, k, v, _ = make(unet_shape, torch.float32, 9)
     torch.cuda.reset_peak_memory_stats()
     big = time_group([lambda: FA.flash_attention(q, k, v, sm_scale=scale),
@@ -273,6 +281,7 @@ def flash_attention_phase(device, card):
 
     # The times of the type the full-width path runs; float32's are printed above.
     t = timings[(unet_shape, torch.bfloat16)]
+    wide = timings[(vae_shape, torch.bfloat16)]
     common = dict(route="cuda", launches=0, timed_shape=list(unet_shape), timed_dtype="bfloat16")
     source = "rgie_tpu_torch/csrc/flash_attention_{}.cu"
     replaces = "jax/experimental/pallas/ops/tpu/flash_attention.py:{}"
@@ -289,6 +298,10 @@ def flash_attention_phase(device, card):
             ms=t[key][0], kernel_ms=t[key][0], plain_ms=t[key][1],
             bound_ms=t["bounds"][key][0], bound_by=t["bounds"][key][1], library_ms=t[key][2],
             **common))
+    # The forward's second tensor-core kernel, at the VAE's single wide head.
+    entries[0].update(wide_shape=list(vae_shape), wide_kernel_ms=wide["fwd"][0],
+                      wide_plain_ms=wide["fwd"][1], wide_bound_ms=wide["bounds"]["fwd"][0],
+                      wide_bound_by=wide["bounds"]["fwd"][1], wide_library_ms=wide["fwd"][2])
     return entries
 
 

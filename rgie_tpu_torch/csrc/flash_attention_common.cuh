@@ -3,8 +3,8 @@
 //
 // 1. The CUDA-core set (float32 arithmetic): tile geometry, global<->shared
 //    tile copies for float32 and bfloat16, and the three 64x64x64
-//    register-blocked tile products. It serves float32 inputs, bfloat16 head
-//    widths the tensor-core kernels do not take, and the dQ kernel.
+//    register-blocked tile products. It serves float32 inputs and the
+//    bfloat16 head widths the tensor-core kernels do not take.
 // 2. The tensor-core set (bfloat16, at the end of the file): 128-byte
 //    swizzled bfloat16 tiles filled by 16-byte `cp.async` copies, `wgmma`
 //    shared-memory descriptors, the `wgmma` instructions themselves, and the
@@ -241,8 +241,8 @@ inline int chunks_for_width(int width) {
 //   - MN-major, `tnspB` (the product sums over the tile's rows: P V, P^T dO,
 //     dS^T Q): the 64 columns are one swizzle atom, 8-row groups again 1024
 //     bytes apart; the next 16 rows are 2048 bytes further (descriptor + 128).
-// A head wider than 64 is held as two such tiles ("atoms"), columns 0-63 and
-// 64-127; columns past the head width are zero-filled.
+// A head wider than 64 is held as several such tiles ("atoms") of 64 columns
+// each; columns past the head width are zero-filled.
 //
 // A block is two warpgroups (256 threads) that multiply and a third that
 // starts every copy: a warp that starts 16-byte copies faster than the L2
@@ -425,6 +425,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a, u
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 32) = A (64 x 16, K-major tile) . B^T (32 x 16, K-major tile).
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : RGIE_F8(d, 0), RGIE_F8(d, 8)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64) += A (64 x 16, a register fragment) . B (16 x 64, 16 rows of
 // an MN-major tile).
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
@@ -490,6 +505,14 @@ __device__ __forceinline__ void store_accumulator(bf16* base, long long stride, 
 inline int atoms_for_width(int width) {
   if (width <= 0 || width % 8 != 0 || width > 128) return 0;
   return width <= 64 ? 1 : 2;
+}
+
+// The forward's wide tensor-core kernel takes bfloat16 head widths above 128
+// that are multiples of 64, up to 512, held as 4 (up to 256) or 8 atoms.
+// Returns 0 for any other width.
+inline int wide_atoms_for_width(int width) {
+  if (width <= 128 || width % 64 != 0 || width > 512) return 0;
+  return width <= 256 ? 4 : 8;
 }
 
 }  // namespace rgie

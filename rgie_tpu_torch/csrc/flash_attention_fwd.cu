@@ -11,7 +11,7 @@
 // head) and moves only 4 N d elements, so at N = 16384 it sits far above the
 // memory roofline: for bfloat16 the limit is the tensor cores' rate (989
 // TFLOP/s: 0.695 ms at (2, 5, 16384, 64)), for float32 the CUDA cores' (67
-// TFLOP/s: 10.26 ms). Two kernels, chosen by shape in the C entry point:
+// TFLOP/s: 10.26 ms). Three kernels, chosen by shape in the C entry point:
 //
 // 1. `flash_fwd_tc_kernel`: bfloat16, head widths that are multiples of 8 up
 //    to 128 (what the UNet launches ~1500 times an edit). Both products run
@@ -32,15 +32,30 @@
 //    occupies the special-function unit for as many cycles as both products
 //    occupy the tensor cores, and the two warpgroups meet at one barrier per
 //    tile instead of alternating between softmax and products: open items.
-// 2. `flash_fwd_kernel`: float32 (the tensor cores would drop its last 13
+// 2. `flash_fwd_wide_kernel`: bfloat16, head widths above 128 that are
+//    multiples of 64, up to 512 (the VAE's single 512-wide head, once per
+//    VAE pass). Both products as `wgmma`; a block owns 64 query rows and its
+//    two multiplying warpgroups each own half of the output's columns and
+//    compute the whole score tile themselves (the note above the kernel says
+//    why). Q resident, K and V tiles of 32 keys as separate items of a
+//    four-slot `cp.async` ring; softmax and products not overlapped. Dynamic shared
+//    memory 97 KB (widths up to 256) or 193 KB (up to 512).
+//    No spill. Measured at (1, 1, 16384, 512) on the same card: 2.99 ms
+//    (27.2 on the CUDA cores before), 5.4x its bound (0.556 ms), 0.65x the
+//    library's call (4.58 ms). 64-row blocks read 8.6 GB of K and V from
+//    the L2 cache, and the copies alone take 2.59 ms (`python -m
+//    rgie_tpu_torch.cli.kernel_variants`; 3.28 of 3.82 ms with the two-stage
+//    ring of whole K + V tiles this kernel had first): blocks of more rows
+//    are the open item.
+// 3. `flash_fwd_kernel`: float32 (the tensor cores would drop its last 13
 //    mantissa bits) and the other bfloat16 widths (multiples of 4 that are
-//    not of 8; 128 < d <= 512, the VAE's 512-wide head). One block owns 64
+//    not of 8 up to 128, or not of 64 above). One block owns 64
 //    query rows; operands are widened to float32 in shared memory, each
 //    thread keeps a 4x4 patch of the score tile and a 4x4 patch per
 //    64-column chunk of the output in registers, and every shared-memory
 //    read is a float4 that feeds 16 multiply-adds on the CUDA cores.
 //
-// Both round P to the inputs' type before P V (the TPU kernel's
+// All round P to the inputs' type before P V (the TPU kernel's
 // `p.astype(v.dtype)`; the identity for float32) and keep the row maximum,
 // the row sum and the log-sum-exp in float32. One float32 log-sum-exp per
 // row is written (the TPU kernel's separate `l` and `m` are a TPU layout
@@ -234,22 +249,24 @@ __device__ __forceinline__ void start_pv(float (&acc)[NATOM][32], const uint32_t
   wgmma_commit();
 }
 
-// One step of the online softmax on a thread's share of a 64 x 128 score
+// One step of the online softmax on a thread's share of a 64 x KEYS score
 // tile, in base 2 with the scale folded into one multiply-add per score.
 // s[4 j + i] is key k0 + 8 j + 2 (lane % 4) + i % 2 of row i / 2; on return
 // it holds P, and alpha the factor that brings the old sums to the new
 // maximum. The row maximum is taken over the raw scores (the smallest when
 // the scale is negative), so keys past n are first set to a value that
 // cannot win it, and their P is set to 0 afterwards.
-__device__ __forceinline__ void softmax_step(float (&s)[64], float (&row_m)[2], float (&row_l)[2],
-                                             float (&alpha)[2], float scale2, int k0, int n) {
+template <int KEYS>
+__device__ __forceinline__ void softmax_step(float (&s)[KEYS / 2], float (&row_m)[2],
+                                             float (&row_l)[2], float (&alpha)[2], float scale2,
+                                             int k0, int n) {
   const int lane = threadIdx.x & 31;
-  const bool ragged = k0 + kFwdRows > n;
+  const bool ragged = k0 + KEYS > n;
   const bool positive = scale2 >= 0.f;
   if (ragged) {
     const float loser = positive ? -3.0e38f : 3.0e38f;
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < KEYS / 2; ++i) {
       if (k0 + (i >> 2) * 8 + (lane & 3) * 2 + (i & 1) >= n) s[i] = loser;
     }
   }
@@ -258,12 +275,12 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&row_m)[2], 
     float ext = s[2 * r];
     if (positive) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) ext = fmaxf(ext, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      for (int j = 0; j < KEYS / 8; ++j) ext = fmaxf(ext, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
       ext = fmaxf(ext, __shfl_xor_sync(0xffffffffu, ext, 1));
       ext = fmaxf(ext, __shfl_xor_sync(0xffffffffu, ext, 2));
     } else {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) ext = fminf(ext, fminf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+      for (int j = 0; j < KEYS / 8; ++j) ext = fminf(ext, fminf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
       ext = fminf(ext, __shfl_xor_sync(0xffffffffu, ext, 1));
       ext = fminf(ext, __shfl_xor_sync(0xffffffffu, ext, 2));
     }
@@ -272,7 +289,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], float (&row_m)[2], 
     row_m[r] = m_new;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < KEYS / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float p = fast_exp2(fmaf(s[4 * j + 2 * r + e], scale2, -m_new));
@@ -362,7 +379,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   start_scores<NATOM>(s, q_tiles, KVs);
   wgmma_wait<0>();
   fence_registers(s);
-  softmax_step(s, row_m, row_l, alpha, scale2, 0, n);
+  softmax_step<kFwdRows>(s, row_m, row_l, alpha, scale2, 0, n);
 #pragma unroll
   for (int ks = 0; ks < 8; ++ks) pack_fragment(pa[ks], s, ks);
 
@@ -376,7 +393,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     start_pv<NATOM>(acc, pa, KVs + (kt % kFwdStages) * kStageBytes + NATOM * kFwdTileBytes);
     wgmma_wait<1>();   // S_{kt+1} is there; P_kt V_kt still runs
     fence_registers(s);
-    softmax_step(s, row_m, row_l, alpha, scale2, (kt + 1) * kFwdRows, n);
+    softmax_step<kFwdRows>(s, row_m, row_l, alpha, scale2, (kt + 1) * kFwdRows, n);
     wgmma_wait<0>();
     fence_fragments(pa);
 #pragma unroll
@@ -444,6 +461,203 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* l
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16, head widths above 128 that are multiples of 64, up to 512 (the
+// VAE's single 512-wide head): the tensor cores, the output split by columns.
+//
+// A warpgroup that owned 64 rows of a 512-wide output would need 256
+// registers a thread for its sums alone. So one block owns 64 query rows and
+// each of its two multiplying warpgroups owns half of the output's columns
+// (NATOM / 2 atoms, at most four 64 x 64 accumulators: 128 registers). Both
+// need the whole P tile: each computes S = Q K^T over the full head width
+// itself and runs the same softmax. That repeats the first product (1.5 x the
+// nominal 4 N^2 d operations) and spares a float32 exchange of partial
+// scores through shared memory with a second barrier per tile; the bound
+// with the repeat (0.83 ms at (1, 1, 16384, 512)) is far below what the rest
+// of this simple version costs.
+//
+// Q stays resident (NATOM tiles of 64 rows). What feeds the kernel is the
+// limit, not what multiplies: every block reads all of K and V from the L2
+// cache (8.6 GB at (1, 1, 16384, 512)), so the copies must never drain. K
+// and V tiles of 32 keys (32 KB each at width 512) are separate items of one
+// ring of four slots, in the order K_0, V_0, K_1, V_1, ...: while item i is
+// multiplied, items i + 1 and i + 2 are on their way or there, and the copy
+// of item i + 3 takes the slot of item i - 1 (one barrier per item: there
+// item i has arrived and item i - 1 is no longer read). The third warpgroup
+// starts every copy. Softmax and products are not overlapped.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideRows = 64;    // queries a block
+constexpr int kWideKeys = 32;    // keys a tile
+constexpr int kWideSlots = 4;    // ring slots, each one K tile or one V tile
+constexpr uint32_t kWideQueryTileBytes = kWideRows * kRowBytes;   // one atom of Q
+constexpr uint32_t kWideKeyTileBytes = kWideKeys * kRowBytes;     // one atom of K or V
+
+template <int NATOM>
+__global__ void __launch_bounds__(kTcThreads + kCopyThreads, 1)
+flash_fwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                      int heads, int n, int width, Strides sq, Strides sk, Strides sv, Strides so,
+                      float scale) {
+  constexpr int kOwn = NATOM / 2;                                   // output atoms a warpgroup
+  constexpr uint32_t kSlotBytes = NATOM * kWideKeyTileBytes;        // the atoms of K or of V
+  extern __shared__ char smem_raw[];
+  const uint32_t Qs = (smem_addr(smem_raw) + 1023u) & ~1023u;   // NATOM tiles
+  const uint32_t ring = Qs + NATOM * kWideQueryTileBytes;       // kWideSlots slots
+
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.x * kWideRows;
+  const int n_tiles = (n + kWideKeys - 1) / kWideKeys;
+
+  if (threadIdx.x >= kTcThreads) {
+    registers_dec<kCopyRegisters>();
+    // The copying warpgroup. Item 2 t of the ring is K's tile t, item 2 t + 1
+    // V's. At the barrier of item i that item has arrived (the two after it
+    // may still be on their way) and item i - 1 is no longer read.
+    const int loader = threadIdx.x - kTcThreads;
+    const bf16* qb = q + b * sq.b + h * sq.h;
+    const bf16* kb = k + b * sk.b + h * sk.h;
+    const bf16* vb = v + b * sv.b + h * sv.h;
+    auto load_item = [&](int item) {
+      if (item < 2 * n_tiles) {
+        const uint32_t slot = ring + (item % kWideSlots) * kSlotBytes;
+        const bf16* base = (item & 1) ? vb : kb;
+        const long long stride = (item & 1) ? sv.n : sk.n;
+#pragma unroll 1   // the copying warpgroup keeps 56 registers a thread
+        for (int a = 0; a < NATOM; ++a) {
+          load_tile_async(slot + a * kWideKeyTileBytes, base, stride, (item >> 1) * kWideKeys, n,
+                          kWideKeys, a * kAtom, width, loader, kCopyThreads);
+        }
+      }
+      cp_async_commit();   // an empty group past the last item keeps the count of groups
+    };
+#pragma unroll 1
+    for (int a = 0; a < NATOM; ++a) {
+      load_tile_async(Qs + a * kWideQueryTileBytes, qb, sq.n, q0, n, kWideRows, a * kAtom, width,
+                      loader, kCopyThreads);
+    }
+    load_item(0);
+    load_item(1);
+    load_item(2);
+    for (int item = 0; item < 2 * n_tiles; ++item) {
+      cp_async_wait_and_publish<2>();   // this item (and, with item 0, Q)
+      __syncthreads();
+      load_item(item + 3);
+    }
+    return;
+  }
+  registers_inc<kTcRegisters>();
+
+  // Per thread: rows lane / 4 and lane / 4 + 8 of its warp's 16-row band, in
+  // this warpgroup's columns [wg * kOwn * 64, (wg + 1) * kOwn * 64).
+  float acc[kOwn][32];
+#pragma unroll
+  for (int a = 0; a < kOwn; ++a) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+  }
+  float row_m[2] = {-INFINITY, -INFINITY};   // running maximum, in the log2 domain
+  float row_l[2] = {0.f, 0.f};               // this thread's share of the running sum
+  float alpha[2];
+  const float scale2 = scale * kLog2e;
+  float s[kWideKeys / 2];
+  uint32_t pa[kWideKeys / 16][4];
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const uint32_t k_slot = ring + ((2 * kt) % kWideSlots) * kSlotBytes;
+    const uint32_t v_slot = ring + ((2 * kt + 1) % kWideSlots) * kSlotBytes;
+    __syncthreads();   // K's tile kt has arrived
+    fence_registers(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < NATOM * 4; ++ks) {
+      const uint64_t step = (ks & 3) * kDescNextColumns16;
+      wgmma_m64n32k16_ss(s, tile_descriptor(Qs + (ks >> 2) * kWideQueryTileBytes) + step,
+                         tile_descriptor(k_slot + (ks >> 2) * kWideKeyTileBytes) + step, ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(s);
+    softmax_step<kWideKeys>(s, row_m, row_l, alpha, scale2, kt * kWideKeys, n);
+#pragma unroll
+    for (int a = 0; a < kOwn; ++a) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          acc[a][4 * j + 2 * r] *= alpha[r];
+          acc[a][4 * j + 2 * r + 1] *= alpha[r];
+        }
+      }
+    }
+#pragma unroll
+    for (int ks = 0; ks < kWideKeys / 16; ++ks) pack_fragment(pa[ks], s, ks);
+    __syncthreads();   // V's tile kt has arrived; both warpgroups are done with K's
+    fence_fragments(pa);
+#pragma unroll
+    for (int a = 0; a < kOwn; ++a) fence_registers(acc[a]);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < kWideKeys / 16; ++ks) {
+#pragma unroll
+      for (int a = 0; a < kOwn; ++a) {
+        wgmma_m64n64k16_rs_tb(
+            acc[a], pa[ks],
+            tile_descriptor(v_slot + (wg * kOwn + a) * kWideKeyTileBytes) +
+                ks * kDescNextRows16);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_fragments(pa);
+#pragma unroll
+    for (int a = 0; a < kOwn; ++a) fence_registers(acc[a]);
+  }
+
+  // A row's sum is spread over the 4 lanes of its quad.
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    row_l[r] += __shfl_xor_sync(0xffffffffu, row_l[r], 1);
+    row_l[r] += __shfl_xor_sync(0xffffffffu, row_l[r], 2);
+    inv[r] = 1.f / row_l[r];
+  }
+  bf16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int a = 0; a < kOwn; ++a) {
+    store_accumulator(ob, so.n, q0, n, (wg * kOwn + a) * kAtom, width, acc[a], inv[0], inv[1]);
+  }
+  if (wg == 0 && (lane & 3) == 0) {   // both warpgroups hold the same row sums
+    const int warp = (threadIdx.x >> 5) & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + (lane >> 2) + 8 * r;
+      if (row < n) lse[(long long)bh * n + row] = (row_m[r] + log2f(row_l[r])) * kLn2;
+    }
+  }
+}
+
+template <int NATOM>
+int launch_fwd_wide(const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                    int heads, int n, int width, const long long* st, float scale,
+                    cudaStream_t stream) {
+  // Q, the ring's slots, and the slack to align the first tile.
+  const size_t smem = (size_t)NATOM * (kWideQueryTileBytes + kWideSlots * kWideKeyTileBytes) +
+                      1024;
+  auto kernel = flash_fwd_wide_kernel<NATOM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kWideRows - 1) / kWideRows, batch * heads);
+  kernel<<<grid, kTcThreads + kCopyThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, lse, heads, n, width,
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+      Strides{st[9], st[10], st[11]}, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace rgie
 
 // q, k, v, o: (batch, heads, n, width) with the width axis contiguous;
@@ -451,9 +665,10 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* o, float* l
 // that order (12 values). lse: (batch, heads, n) float32, contiguous.
 // Returns cudaGetLastError() (0 on success), or -1 for a width or a grid the
 // kernel does not take. Dispatch by shape: bfloat16 with a width that is a
-// multiple of 8 up to 128 runs the tensor-core kernel (its tensors 16-byte
-// aligned, strides multiples of 8 elements); float32, and every other
-// bfloat16 width, the CUDA-core kernel.
+// multiple of 8 up to 128 runs the tensor-core kernel, bfloat16 with a width
+// that is a multiple of 64 above 128 up to 512 the wide one (their tensors
+// 16-byte aligned, strides multiples of 8 elements); float32, and every
+// other bfloat16 width, the CUDA-core kernel.
 extern "C" int rgie_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         float* lse, int batch, int heads, int n, int width,
                                         const long long* strides, float scale, int is_bf16,
@@ -471,6 +686,13 @@ extern "C" int rgie_flash_attention_fwd(const void* q, const void* k, const void
     }
     if (atoms == 2) {
       return launch_fwd_tc<2>(q, k, v, o, lse, batch, heads, n, width, strides, scale, s);
+    }
+    const int wide_atoms = wide_atoms_for_width(width);
+    if (wide_atoms == 4) {
+      return launch_fwd_wide<4>(q, k, v, o, lse, batch, heads, n, width, strides, scale, s);
+    }
+    if (wide_atoms == 8) {
+      return launch_fwd_wide<8>(q, k, v, o, lse, batch, heads, n, width, strides, scale, s);
     }
     if (chunks == 1) RGIE_FWD(__nv_bfloat16, 1);
     if (chunks == 2) RGIE_FWD(__nv_bfloat16, 2);

@@ -17,13 +17,16 @@ online softmax, the same log-sum-exp residual, a hand-written backward with
 the kernels' formulas); CUDA tensors launch the kernels or raise. There is
 no fallback between the two.
 
-Inside the C entry points of the forward and the dK/dV kernel a second
-dispatch goes by shape (``tensor_core_route``): bfloat16 inputs whose head
-width is a multiple of 8 up to 128 multiply on the tensor cores (``wgmma``,
-bfloat16 tiles in shared memory, ``cp.async`` ring); float32 inputs and every
-other bfloat16 width (multiples of 4 that are not of 8, and 128 < d <= 512,
-the VAE's single 512-wide head) run the float32 CUDA-core kernels. The dQ
-kernel is the CUDA-core one for every shape. A launch that fails raises.
+Inside each C entry point a second dispatch goes by shape
+(``tensor_core_route``, a rule per kernel): bfloat16 inputs whose head width
+is a multiple of 8 up to 128 multiply on the tensor cores in all three
+kernels (``wgmma``, bfloat16 tiles in shared memory, ``cp.async`` ring); the
+forward also takes bfloat16 widths above 128 that are multiples of 64, up to
+512 (the VAE's single 512-wide head), on the tensor cores, its output split
+by columns over two warpgroups. float32 inputs and every other bfloat16 width
+(multiples of 4 that are not of 8; above 128 every width in the backward
+kernels, and those that are not multiples of 64 in the forward) run the
+float32 CUDA-core kernels. A launch that fails raises.
 
 Rounding in bfloat16, as in the TPU kernels: the products take bfloat16
 operands and sum in float32; the probabilities P and the score gradients dS
@@ -50,6 +53,8 @@ LAUNCHES_BWD_DKV = 0
 LAUNCHES_BWD_DQ = 0
 
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+#: The three kernels by their short names: "fwd", "bwd_dkv", "bwd_dq".
+KERNELS = tuple(name.removeprefix("flash_attention_") for name in KERNEL_SOURCES)
 
 #: Sequences at least this long take the flash path (self-attention only).
 MIN_FLASH_SEQ_LEN = 8192
@@ -61,10 +66,18 @@ def head_width_supported(width: int) -> bool:
     return 0 < width <= MAX_HEAD_WIDTH and width % 4 == 0
 
 
-def tensor_core_route(dtype: torch.dtype, width: int) -> bool:
-    """Whether the forward and dK/dV entry points run their tensor-core kernel
-    for this type and head width (the rule is repeated in the C sources)."""
-    return dtype == torch.bfloat16 and 0 < width <= 128 and width % 8 == 0
+def tensor_core_route(kernel: str, dtype: torch.dtype, width: int) -> bool:
+    """Whether the entry point of ``kernel`` (one of ``KERNELS``) runs a
+    tensor-core kernel for this type and head width (the rule is repeated in
+    the C sources): bfloat16 at multiples of 8 up to 128 in all three, and in
+    the forward also at multiples of 64 above 128 up to 512."""
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown kernel {kernel!r}: one of {KERNELS}")
+    if dtype != torch.bfloat16 or width <= 0:
+        return False
+    if width <= 128:
+        return width % 8 == 0
+    return kernel == "fwd" and width <= MAX_HEAD_WIDTH and width % 64 == 0
 
 
 def flash_self_attention_ok(n: int, m: int, dim_head: int) -> bool:
@@ -201,11 +214,14 @@ def _kernel(source: str, symbol: str):
 
 
 def load_width(dtype: torch.dtype, width: int) -> int:
-    """Elements a kernel loads at once from a tensor of this type and head
-    width: 16 bytes (4 float32, 8 bfloat16 on the tensor-core route), or the
-    4 bfloat16 (8 bytes) of the CUDA-core kernels for the other widths."""
-    if dtype == torch.bfloat16:
-        return 8 if tensor_core_route(dtype, width) else 4
+    """Elements the kernels load at once from a tensor of this type and head
+    width. Q, K, V and dO are read by all three kernels (the saved Q, K and V
+    of a forward go on to both backward kernels), so this is the strictest
+    load of the three: 16 bytes (4 float32; 8 bfloat16 where any kernel takes
+    its tensor-core route), or the 4 bfloat16 (8 bytes) of the CUDA-core
+    kernels for the other widths."""
+    if dtype == torch.bfloat16 and any(tensor_core_route(kn, dtype, width) for kn in KERNELS):
+        return 8
     return 4
 
 

@@ -191,6 +191,20 @@ def test_kernel_sources_are_in_the_package():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
 
 
+def test_kernel_variants_still_apply_to_the_sources():
+    """``cli/kernel_variants.py`` edits copies of the kernel sources by exact
+    text: every edit finds its lines exactly once in the source it names."""
+    from rgie_tpu_torch.cli import kernel_variants as KV
+    from rgie_tpu_torch.ops.kernels import build
+
+    assert KV.VARIANTS
+    for name, (source, edits) in KV.VARIANTS.items():
+        assert source in FA.KERNEL_SOURCES
+        text = (build.CSRC_DIR / f"{source}.cu").read_text()
+        for old, new in edits:
+            assert text.count(old) == 1 and new != old, name
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -208,11 +222,13 @@ def cuda_device():
 @pytest.mark.parametrize("shape", [(1, 2, 8192, 64), (2, 3, 1000, 32), (1, 1, 2100, 512),
                                    (1, 2, 300, 128), (1, 1, 77, 8), (1, 5, 9000, 64),
                                    (1, 2, 2100, 128), (1, 2, 520, 72), (1, 2, 1000, 36),
-                                   (1, 1, 130, 136)])
+                                   (1, 1, 130, 136), (1, 2, 1000, 256), (1, 2, 700, 192)])
 def test_kernels_match_plain_on_the_card(cuda_device, shape, dtype):
-    """In bfloat16 the widths 8, 32, 64, 72 and 128 run the forward and dK/dV
-    on the tensor cores (zero-filled to 64 or 128 columns), 36, 136 and 512 on
-    the CUDA cores; float32 runs the CUDA-core kernels at every width."""
+    """In bfloat16 the widths 8, 32, 64, 72 and 128 run all three kernels on
+    the tensor cores (zero-filled to 64 or 128 columns), at a ragged N too;
+    192, 256 and 512 run the forward's wide tensor-core kernel and the
+    backward on the CUDA cores; 36 and 136 run the CUDA cores throughout, as
+    float32 does at every width."""
     b, h, n, d = shape
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(dtype).transpose(1, 2)
                    for a in _qkv(n + d, (b, n, h, d)))
@@ -238,13 +254,18 @@ def test_kernels_match_plain_on_the_card(cuda_device, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 512])
 @pytest.mark.parametrize("scale", [-0.3, 0.0])
-def test_tensor_core_kernels_take_any_scale(cuda_device, scale):
-    """The tensor-core forward takes the row maximum over the raw scores and
-    folds the scale into the exponent: a negative or zero scale, on a ragged
-    shape, goes through the branches that a positive one does not."""
+def test_tensor_core_kernels_take_any_scale(cuda_device, scale, width):
+    """The tensor-core forwards (width 64, and the wide kernel at 512) take
+    the row maximum over the raw scores and fold the scale into the exponent:
+    a negative or zero scale, on a ragged shape, goes through the branches
+    that a positive one does not. dK/dV and dQ (on the tensor cores at width
+    64) fold it into the exponent and into dS; at scale 0 dS is 0 and the
+    keys past N are set to 0, not multiplied to it."""
+    scale = scale * (64.0 / width) ** 0.5     # the same spread of scores at both widths
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16).transpose(1, 2)
-                   for a in _qkv(11, (1, 300, 2, 64)))
+                   for a in _qkv(11, (1, 300, 2, width)))
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = FA.flash_attention(*leaves, sm_scale=scale)
     grads = torch.autograd.grad(out, leaves, do)
@@ -254,6 +275,29 @@ def test_tensor_core_kernels_take_any_scale(cuda_device, scale):
     for got, expect in zip(grads, ref_grads):     # dq and dk are identically 0 at scale 0
         err = float((got.float() - expect.float()).abs().max())
         assert err <= 1e-2 * max(float(expect.float().abs().max()), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128])
+def test_backward_takes_a_strided_output_gradient(cuda_device, width):
+    """A dO that is a view with strides the 16-byte copies cannot take (a
+    row stride that is not a multiple of 8 elements) is cloned by the wrapper:
+    the gradients equal those of the same values held contiguously."""
+    b, h, n = 1, 2, 333
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16).transpose(1, 2)
+                   for a in _qkv(5, (b, n, h, width)))
+    padded = torch.zeros(b, h, n, width + 4, dtype=torch.bfloat16, device=cuda_device)
+    padded[..., :width] = do
+    view = padded[..., :width]
+    assert view.stride(2) % 8 != 0 and FA._strided(view) is not view
+    results = []
+    for grad_out in (view, do.contiguous()):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = FA.flash_attention(*leaves, sm_scale=width ** -0.5)
+        results.append(torch.autograd.grad(out, leaves, grad_out))
+    torch.cuda.synchronize()
+    for got, expect in zip(*results):
+        assert torch.equal(got, expect)
 
 
 @pytest.mark.cuda

@@ -2,8 +2,9 @@
 probabilities P and the score gradients dS to bfloat16 before the second
 product as the TPU kernels do, against those TPU kernels themselves (forward,
 dK/dV and dQ) run on the CPU in Pallas' TPU interpret mode; the float32
-results of the plain version unchanged by the rounding code; the stride rule
-of the wrapper per element size and route.
+results of the plain version unchanged by the rounding code; the route per
+kernel, type and head width, and the stride rule of the wrapper that follows
+from it.
 
 Tolerances against the TPU kernel: both sides multiply bfloat16 operands with
 float32 sums and round P and dS at the same points; they differ by the order
@@ -31,7 +32,7 @@ def _rel(got, expect):
     return float(np.abs(got - expect).max() / np.abs(expect).max())
 
 
-@pytest.mark.parametrize("shape", [(1, 2, 256, 64), (1, 1, 256, 128)])
+@pytest.mark.parametrize("shape", [(1, 2, 256, 64), (1, 1, 256, 128), (1, 1, 256, 512)])
 def test_plain_bf16_matches_the_tpu_kernels_in_interpret_mode(shape):
     import jax
     import jax.numpy as jnp
@@ -106,15 +107,33 @@ def test_plain_float32_is_bit_identical_without_the_rounding_code(monkeypatch, n
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-@pytest.mark.parametrize("dtype,width,expect_route,expect_load", [
-    (torch.float32, 64, False, 4), (torch.float32, 8, False, 4),
-    (torch.bfloat16, 64, True, 8), (torch.bfloat16, 8, True, 8), (torch.bfloat16, 128, True, 8),
-    (torch.bfloat16, 36, False, 4), (torch.bfloat16, 136, False, 4),
-    (torch.bfloat16, 512, False, 4)])
-def test_route_and_load_width_per_type_and_head_width(dtype, width, expect_route, expect_load):
-    assert FA.tensor_core_route(dtype, width) is expect_route
+@pytest.mark.parametrize("kernel,dtype,width,expect_route,expect_load", [
+    # The forward (and, up to 128, every kernel: one rule).
+    ("fwd", torch.float32, 64, False, 4), ("fwd", torch.float32, 8, False, 4),
+    ("fwd", torch.bfloat16, 64, True, 8), ("fwd", torch.bfloat16, 8, True, 8),
+    ("fwd", torch.bfloat16, 128, True, 8), ("fwd", torch.bfloat16, 36, False, 4),
+    ("fwd", torch.bfloat16, 136, False, 4),
+    # Above 128 the forward alone has a tensor-core kernel, at multiples of
+    # 64; a tensor any kernel reads that way is loaded 8 elements at a time.
+    ("bwd_dkv", torch.bfloat16, 512, False, 8),
+    ("fwd", torch.bfloat16, 192, True, 8), ("fwd", torch.bfloat16, 256, True, 8),
+    ("fwd", torch.bfloat16, 512, True, 8), ("fwd", torch.bfloat16, 200, False, 4),
+    ("fwd", torch.float32, 512, False, 4),
+    ("bwd_dkv", torch.bfloat16, 64, True, 8), ("bwd_dkv", torch.bfloat16, 136, False, 4),
+    ("bwd_dkv", torch.bfloat16, 256, False, 8),
+    ("bwd_dq", torch.bfloat16, 8, True, 8), ("bwd_dq", torch.bfloat16, 64, True, 8),
+    ("bwd_dq", torch.bfloat16, 128, True, 8), ("bwd_dq", torch.bfloat16, 136, False, 4),
+    ("bwd_dq", torch.bfloat16, 512, False, 8), ("bwd_dq", torch.float32, 64, False, 4)])
+def test_route_and_load_width_per_type_and_head_width(kernel, dtype, width, expect_route,
+                                                      expect_load):
+    assert FA.tensor_core_route(kernel, dtype, width) is expect_route
     assert FA.load_width(dtype, width) == expect_load
     assert FA.head_width_supported(width)
+
+
+def test_route_refuses_an_unknown_kernel():
+    with pytest.raises(ValueError, match="unknown kernel"):
+        FA.tensor_core_route("bwd", torch.bfloat16, 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -140,6 +159,17 @@ def test_strided_rule_follows_the_element_size(dtype):
     narrow = torch.zeros(b, h, n, 12, dtype=dtype)
     assert FA._strided(narrow) is narrow
 
+    # The VAE's 512-wide head: the forward reads it 16 bytes at a time in
+    # bfloat16, so a row stride of 516 (a multiple of 4, not of 8) is copied.
+    wide = torch.zeros(1, 1, n, 516, dtype=dtype)[..., :512]
+    got = FA._strided(wide)
+    if dtype == torch.float32:
+        assert got is wide
+    else:
+        assert got is not wide and got.stride() == (n * 512, n * 512, 512, 1)
+    aligned = torch.zeros(1, 1, n, 520, dtype=dtype)[..., :512]
+    assert FA._strided(aligned) is aligned
+
     # A base that is not 16-byte aligned is copied in both types.
     step = 16 // base.element_size() // 2
     shifted = torch.zeros(b * h * n * d + step, dtype=dtype)[step:].view(b, h, n, d)
@@ -154,7 +184,10 @@ def test_kernel_sources_name_both_routes():
 
     common = (build.CSRC_DIR / "flash_attention_common.cuh").read_text()
     assert "wgmma.mma_async.sync.aligned" in common and "cp.async.cg.shared.global" in common
-    for name in ("flash_attention_fwd", "flash_attention_bwd_dkv"):
+    for name in FA.KERNEL_SOURCES:
         text = (build.CSRC_DIR / f"{name}.cu").read_text()
         assert "atoms_for_width(width)" in text and "chunks_for_width(width)" in text
         assert "atomicAdd" not in text
+    # The forward alone has a second tensor-core kernel, for the wide heads.
+    fwd = (build.CSRC_DIR / "flash_attention_fwd.cu").read_text()
+    assert "wide_atoms_for_width(width)" in fwd and "wide_atoms_for_width" in common
