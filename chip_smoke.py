@@ -18,8 +18,9 @@ Phases (every check raises; nothing is caught):
    backward dK/dV, backward dQ): the UNet's (2, 5, 16384, 64), the VAE's
    (1, 1, 16384, 512), the ragged (1, 5, 9000, 64) and (1, 1, 2100, 512),
    and widths 32, 128, 36 and 256, in float32 and bfloat16; tolerances in
-   ``K2_TOLERANCE`` below; the route of each of the three kernels is printed
-   per shape. Kernel and plain version are timed with CUDA events in
+   ``K2_TOLERANCE`` below; the route of each of the three kernels
+   (``kernel_route``: tensor, wide, float32 or cuda_cores) is printed per
+   shape. Kernel and plain version are timed with CUDA events in
    alternation; one PyTorch call that computes the same function
    (``scaled_dot_product_attention`` and its autograd backward) is timed
    beside them as a yardstick only. Kernel and matmul routes are also timed
@@ -42,7 +43,8 @@ Phases (every check raises; nothing is caught):
    the CLI's default is 50). Checks: each K2 launch count equals the count
    the code implies (derived and printed); latents, null-text embeddings and
    the image finite; the image (1, 1024, 1024, 3) in [0, 1]; every
-   classifier-guidance gradient non-zero.
+   classifier-guidance gradient non-zero; the null-text embeddings and their
+   Adam moments float32.
 5. Card against CPU with the same full-width modules at 256 px (below the
    gate, so this holds everything but the kernels): one CFG +
    classifier-guidance sampling step, and the loss and gradient of one
@@ -56,12 +58,14 @@ Phases (every check raises; nothing is caught):
    4 at ``DIFFUSION_STEPS`` DDIM steps. Before it, the same bfloat16 models
    edit the image at ``FLOAT32_STEPS`` steps, and the distance of the output
    latents from phase 4's is printed (recorded, not checked: null-text
-   optimization on random weights amplifies rounding).
+   optimization on random weights amplifies rounding). The text tower, the
+   null-text embeddings and their Adam moments stay float32 here too.
 8. Each path is driven with the launch counts set to 0 just before it and
    read just after. One JSON line ``{"kernels": [...]}`` (the K2 entries'
-   times are bfloat16's, the type the full-width path runs; their launches
-   the sum of phase 4's and phase 7's edit), then the card, then the last
-   line ``{"ok": true, "device": {...}}``.
+   times are bfloat16's, the type the full-width path runs by default, with
+   float32's beside them under ``float32_*``; their launches the sum of
+   phase 4's and phase 7's edit), then the card, then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.
@@ -200,10 +204,8 @@ def flash_attention_phase(device, card):
                 e_out /= float(o_ref.float().abs().max())
             e_lse = float((lse - lse_ref).abs().max())
             e_dq, e_dk, e_dv = rel_err(dq, dq_ref), rel_err(dk, dk_ref), rel_err(dv, dv_ref)
-            routes = ", ".join(
-                f"{kn} on the " + ("tensor" if FA.tensor_core_route(kn, dtype, shape[3]) else "CUDA")
-                + " cores" for kn in FA.KERNELS)
-            print(f"flash attention {shape} {dtype} ({routes}): out {e_out:.3e}, "
+            routes = ", ".join(f"{kn} {FA.kernel_route(kn, dtype, shape[3])}" for kn in FA.KERNELS)
+            print(f"flash attention {shape} {dtype} (routes: {routes}): out {e_out:.3e}, "
                   f"lse {e_lse:.3e}, dq {e_dq:.3e}, dk {e_dk:.3e}, dv {e_dv:.3e}")
             check(e_out <= tol["out"] and e_lse <= tol["lse"],
                   f"flash attention forward disagrees with its plain version at {shape} {dtype}")
@@ -279,9 +281,12 @@ def flash_attention_phase(device, card):
     del q, k, v
     torch.cuda.empty_cache()
 
-    # The times of the type the full-width path runs; float32's are printed above.
+    # The times of the type the full-width path runs by default; float32's
+    # (the CLI's --dtype float32) beside them under float32_*.
     t = timings[(unet_shape, torch.bfloat16)]
     wide = timings[(vae_shape, torch.bfloat16)]
+    t32 = timings[(unet_shape, torch.float32)]
+    wide32 = timings[(vae_shape, torch.float32)]
     common = dict(route="cuda", launches=0, timed_shape=list(unet_shape), timed_dtype="bfloat16")
     source = "rgie_tpu_torch/csrc/flash_attention_{}.cu"
     replaces = "jax/experimental/pallas/ops/tpu/flash_attention.py:{}"
@@ -297,11 +302,19 @@ def flash_attention_phase(device, card):
             max_abs_err_float32=errors[torch.float32][key],
             ms=t[key][0], kernel_ms=t[key][0], plain_ms=t[key][1],
             bound_ms=t["bounds"][key][0], bound_by=t["bounds"][key][1], library_ms=t[key][2],
-            **common))
+            float32_route=FA.kernel_route(name.removeprefix("flash_attention_"), torch.float32,
+                                          unet_shape[3]),
+            float32_ms=t32[key][0], float32_plain_ms=t32[key][1],
+            float32_bound_ms=t32["bounds"][key][0], float32_bound_by=t32["bounds"][key][1],
+            float32_library_ms=t32[key][2], **common))
     # The forward's second tensor-core kernel, at the VAE's single wide head.
     entries[0].update(wide_shape=list(vae_shape), wide_kernel_ms=wide["fwd"][0],
                       wide_plain_ms=wide["fwd"][1], wide_bound_ms=wide["bounds"]["fwd"][0],
-                      wide_bound_by=wide["bounds"]["fwd"][1], wide_library_ms=wide["fwd"][2])
+                      wide_bound_by=wide["bounds"]["fwd"][1], wide_library_ms=wide["fwd"][2],
+                      float32_wide_ms=wide32["fwd"][0], float32_wide_plain_ms=wide32["fwd"][1],
+                      float32_wide_bound_ms=wide32["bounds"]["fwd"][0],
+                      float32_wide_bound_by=wide32["bounds"]["fwd"][1],
+                      float32_wide_library_ms=wide32["fwd"][2])
     return entries
 
 
@@ -395,6 +408,10 @@ def diffusion_path_phase(args, stack, image_path, steps, card):
     for name in ("latents", "noisy", "nto_embeds", "out_latents"):
         check(bool(torch.isfinite(log.tensors[name]).all()), f"non-finite {name}")
     check(log.tensors["nto_embeds"].shape == (steps, 77, 1024), "null-text embeddings")
+    # Whatever the models' type, the null-text embeddings and their Adam
+    # moments stay float32, as in the JAX package.
+    for name in ("nto_embeds", "nto_adam_m", "nto_adam_v"):
+        check(log.tensors[name].dtype == torch.float32, f"{name} is {log.tensors[name].dtype}")
     norms = [float(g) for g in log.clf_grad_norms]
     check(len(norms) == steps and all(np.isfinite(g) and g > 0 for g in norms),
           f"classifier-guidance gradient norms {norms}")
@@ -402,7 +419,8 @@ def diffusion_path_phase(args, stack, image_path, steps, card):
           "saved image")
     phases = ", ".join(f"{k} {v:.3f}" for k, v in log.seconds.items())
     print(f"diffusion edit {dtype}: {seconds:.3f} s for one 1024 px image at {steps} steps "
-          f"(scoring the original included), peak memory {peak / 2**30:.2f} GiB, on {card}")
+          f"(scoring the original included), peak memory {peak / 2**30:.2f} GiB, null-text "
+          f"embeddings and Adam moments {log.tensors['nto_embeds'].dtype}, on {card}")
     print(f"  seconds per phase: {phases}; classifier-guidance gradient norms "
           + " ".join(f"{g:.3e}" for g in norms))
     return counts, log.tensors["out_latents"].detach().float().cpu()

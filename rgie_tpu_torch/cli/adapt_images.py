@@ -69,7 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--input-size", type=int, default=None)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
-                    help="weights/compute type (default: float32 for tiny, bfloat16 for sd)")
+                    help="the UNet's and the VAE's type (default: float32 for tiny, bfloat16 "
+                         "for sd); the text tower and the embeddings stay float32")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--vae-tile", type=int, default=None, help="(slice C2) tiled VAE")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
@@ -126,7 +127,11 @@ def build_models(args, generator: torch.Generator, device: torch.device) -> Edit
 
         midu.load_state_dict(load_torch_state_dict(args.midu_ckpt), strict=True)
         print(f"loaded midu classifier from {args.midu_ckpt}")
-    prompt_encoder = create_sd_prompt_encoder(generator, tower_cfg, dtype=dtype)
+    # The text tower and every embedding stay float32 whatever --dtype says,
+    # as in the JAX package (a bfloat16 UNet with float32 embedding masters):
+    # null-text optimization's Adam steps of lr <= 1e-2 are at or below one
+    # bfloat16 step of an entry of size 1.
+    prompt_encoder = create_sd_prompt_encoder(generator, tower_cfg)
 
     pipe = InversionResamplingPipeline(
         unet=unet.to(device), vae=vae.to(device), sched=SCH.make_schedule(args.num_steps),

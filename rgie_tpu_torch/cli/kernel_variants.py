@@ -4,11 +4,12 @@ inside one process on one card, to see what bounds a kernel.
     python -m rgie_tpu_torch.cli.kernel_variants
 
 A variant is the package's source with a few lines replaced (``VARIANTS``
-below). The script copies ``rgie_tpu_torch/csrc/`` into ``build/variants/``
-(ignored by git), applies each variant's edits to the copy, compiles it with
-the package's ``nvcc`` flags, loads it with ``ctypes`` and times it in
-alternation with the package's kernel on the same tensors (CUDA events,
-median of 7). Nothing in the package is touched, and the package never
+below). The script copies ``rgie_tpu_torch/csrc/`` into
+``build/variants/<name>/`` (ignored by git), applies the variant's edits to
+the copy (of the kernel's source, or of the shared header), compiles all
+variants at once with the package's ``nvcc`` flags, loads them with
+``ctypes`` and times each in alternation with the package's kernel on the
+same tensors (CUDA events, median of 7). Nothing in the package is touched, and the package never
 launches a variant. An edit names the exact lines it replaces; when the
 source has changed under it, the script raises and says which edit no longer
 applies.
@@ -26,6 +27,23 @@ The variants:
 - ``dq_free_warpgroups``: the two multiplying warpgroups meet the copying one
   on named barriers of their own (tile arrived: 1 and 2; tile released: 3
   and 4) and no longer each other. Compared: equal to the package's result.
+- ``dkv32_named``: half 0 starts dV += P^T dO without waiting for half 1's
+  dS (half 1 meets only itself, on a named barrier).
+- ``fwd32_*``, ``dkv32_*``: the float32 forward and dK/dV. ``*_old`` is the
+  entry point sending float32 back to the first CUDA-core kernels (the
+  design before the float32 kernels; compared with the package's result);
+  ``*_copies_only`` keeps the copies, barriers and softmax and drops the
+  products, ``*_products_only`` drops the copies of the streamed tiles,
+  ``*_without_exp`` replaces the exponential by its argument, each for the
+  old and the new design; ``*_outer`` (all operands of a 4-deep step loaded,
+  then the outer product one component at a time) and ``*_unroll1``,
+  ``*_unroll4`` change the float32 products' loops in the shared header.
+  ``*_old`` is compared with the package's result (float32 tolerance), the
+  loop variants and ``dkv32_named`` must equal it; the others are not
+  compared.
+
+A selection of variants: ``python -m rgie_tpu_torch.cli.kernel_variants
+fwd32 dkv32`` builds and times only the variants whose names start so.
 
 Prints the card's name and power limit first. Needs CUDA and ``nvcc``.
 """
@@ -45,7 +63,7 @@ from rgie_tpu_torch.ops.kernels import flash_attention as FA
 
 VARIANT_DIR = build.BUILD_DIR.parent / "variants"
 
-_DQ, _FWD = "flash_attention_bwd_dq", "flash_attention_fwd"
+_DQ, _FWD, _DKV = "flash_attention_bwd_dq", "flash_attention_fwd", "flash_attention_bwd_dkv"
 
 _NAMED_BARRIERS = """
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -58,7 +76,76 @@ template <int NATOM>
 __global__ void __launch_bounds__(kTcThreads + kCopyThreads, 1)
 flash_bwd_dq_tc_kernel("""
 
-#: name -> (source, [(lines to replace, replacement), ...])
+# The entry points' float32 dispatch as it was before the float32 kernels:
+# every width on the first CUDA-core kernels.
+_FWD_OLD = [("""  if (chunks == 1) {
+    return launch_fwd_f32<Fwd32>(flash_fwd_float32_kernel, q, k, v, o, lse, batch, heads, n,
+                                 width, strides, scale, s);
+  }
+  return launch_fwd_f32<Fwd32Wide>(flash_fwd_float32_wide_kernel, q, k, v, o, lse, batch, heads,
+                                   n, width, strides, scale, s);""",
+              """  if (chunks == 1) return launch_fwd<float, 1>(q, k, v, o, lse, batch, heads, n, width, strides,
+                                               scale, s);
+  if (chunks == 2) return launch_fwd<float, 2>(q, k, v, o, lse, batch, heads, n, width, strides,
+                                               scale, s);
+  return launch_fwd<float, 8>(q, k, v, o, lse, batch, heads, n, width, strides, scale, s);""")]
+_DKV_OLD = [("""  if (chunks == 1) {
+    return launch_dkv_f32<1, 8, 8>(""", """  if (chunks == 1) RGIE_DKV(float, 1);
+  if (chunks == -1) {
+    return launch_dkv_f32<1, 8, 8>(""")]
+
+# The float32 products' loops in the shared header: all operands of a 4-deep
+# step loaded first, then the outer product one component at a time; and the
+# unrolling of the loops over the depth.
+_HEADER = "flash_attention_common.cuh"
+_OUTER = (_HEADER, """    float4 a[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = *reinterpret_cast<const float4*>(a_rows + RS * i * AP + k);
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(b_rows + TX * j * BP + k);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+      }
+    }""", """    float4 a[R], b[C];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = *reinterpret_cast<const float4*>(a_rows + RS * i * AP + k);
+#pragma unroll
+    for (int j = 0; j < C; ++j) b[j] = *reinterpret_cast<const float4*>(b_rows + TX * j * BP + k);
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[i][j] = fmaf(a[i].x, b[j].x, acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[i][j] = fmaf(a[i].y, b[j].y, acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[i][j] = fmaf(a[i].z, b[j].z, acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[i][j] = fmaf(a[i].w, b[j].w, acc[i][j]);
+    }""")
+
+
+def _UNROLL(factor):
+    return [(_HEADER, f"#pragma unroll 2\n  for ({loop}",
+             f"#pragma unroll {factor}\n  for ({loop}")
+            for loop in ("int k = 0; k < DEPTH; k += 4) {", "int j = 0; j < DEPTH; j += 4) {")]
+
+
+#: name -> (source, [(lines to replace, replacement), ...]); an edit of three
+#: items, (file, lines, replacement), edits another file of csrc/.
 VARIANTS = {
     "dq_copies_only": (_DQ, [(
         """  registers_inc<kTcRegisters>();
@@ -122,6 +209,95 @@ flash_bwd_dq_tc_kernel(""", _NAMED_BARRIERS),
 #pragma unroll
     for (int ks = 0; ks < KEYS / 16; ++ks) pack_fragment(dsa[ks], dp, ks);
   }""")]),
+    # The float32 forward (flash_fwd_float32_kernel<1> and <8>) and dK/dV
+    # (flash_bwd_dkv_float32_kernel<1, 8, 4>), and the CUDA-core kernels they
+    # replaced for float32 (flash_fwd_kernel<float, 1 | 8>,
+    # flash_bwd_dkv_kernel<float, 1>; still in the sources for other types
+    # and widths), each with its copies only, its products only, and its
+    # exponential replaced by its argument.
+    "fwd32_copies_only": (_FWD, [
+        ("    product_nt<8, 8, kF32Pitch, kF32Pitch, 16, 16>(s, Qs, Ks, threadIdx.x);\n",
+         "    (void)Ks;\n"),
+        ("""    product_nn<8, 8, 64, G::kPPitch, kF32Pitch, 8, 16>(acc, Ps + 64 * half,
+                                                       Vs + 64 * half * kF32Pitch, t);
+""", "    (void)Vs;\n"),
+        ("""      product_nt<4, 8, G::kRowPitch, G::kKPitch, 16, 16, G::kKCols>(s, Qs + c * G::kKCols, Ks,
+                                                                     threadIdx.x);
+""", "      (void)Ks;\n"),
+        ("""      product_nn<8, 16, G::kVKeys, G::kPPitch, G::kRowPitch, 32, 8>(
+          acc, Ps + g * G::kVKeys, Vs, threadIdx.x);
+""", "      (void)Vs;\n")]),
+    "fwd32_products_only": (_FWD, [("    if (it < 2 * n_tiles) {", "    if (it < 0) {"),
+                                   ("    if (it < n_tiles * per_tile) {", "    if (it < 0) {")]),
+    "fwd32_without_exp": (_FWD, [
+        ("""      const float alpha = fast_exp2(row_m[i] - m_new);      // 0 at the first tile
+      row_m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = fast_exp2(s[i][j] - m_new);""",
+         """      const float alpha = row_m[i] - m_new;
+      row_m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = s[i][j] - m_new;"""),
+        ("""    const float alpha = fast_exp2(row_m[i] - m_new);      // 0 at the first tile
+    row_m[i] = m_new;""", """    const float alpha = row_m[i] - m_new;
+    row_m[i] = m_new;"""),
+        ("float p = fast_exp2(fmaf(s[i][j], scale2, -m_new));",
+         "float p = fmaf(s[i][j], scale2, -m_new);")]),
+    "fwd32_outer": (_FWD, [_OUTER]),
+    "fwd32_unroll1": (_FWD, _UNROLL(1)),
+    "fwd32_unroll4": (_FWD, _UNROLL(4)),
+    "fwd32_old": (_FWD, _FWD_OLD),
+    "fwd32_old_copies_only": (_FWD, _FWD_OLD + [
+        ("        mma_nt(s, Qs, Ks);\n", ""),
+        ("        mma_nn(acc[c], Ps, Vs);\n", "")]),
+    "fwd32_old_products_only": (_FWD, _FWD_OLD + [
+        ("""        if (NCHUNK > 1 || kt == 0) load_tile(Qs, qb, sq.n, q0, n, c * kTile, width);
+        load_tile(Ks, kb, sk.n, k0, n, c * kTile, width);
+""", ""),
+        ("        load_tile(Vs, vb, sv.n, k0, n, c * kTile, width);\n", "")]),
+    "fwd32_old_without_exp": (_FWD, _FWD_OLD + [
+        ("const float p = expf(s[a][bb] - m_new);", "const float p = s[a][bb] - m_new;"),
+        ("alpha[a] = expf(row_m[a] - m_new);", "alpha[a] = row_m[a] - m_new;")]),
+    "dkv32_copies_only": (_DKV, [
+        ("      if (c < nc) product_nt<KI, QJ, kDP, kDP, 8, 16>(sc, A + c * 64, B + c * 64, t);\n",
+         ""),
+        ("      if (c < nc) product_nn<KI, 8, kQueries, kTP, kDP, 8, 16>(acc[c], Tsum, X + c * 64, t);\n",
+         "")]),
+    "dkv32_products_only": (_DKV, [("    if (qt < n_tiles) {\n      const int q0 = qt * kQueries;",
+                                    "    if (qt < 0) {\n      const int q0 = qt * kQueries;")]),
+    "dkv32_without_exp": (_DKV, [(
+        "sc[i][j] = fast_exp2(fmaf(sc[i][j], scale2, neg_lse2));",
+        "sc[i][j] = fmaf(sc[i][j], scale2, neg_lse2);")]),
+    "dkv32_named": (_DKV, [("""    __syncthreads();
+
+    // dV += P^T dO (half 0), dK += dS^T Q (half 1).""", """    if (half == 1) asm volatile("bar.sync 1, 128;\\n" ::: "memory");
+
+    // dV += P^T dO (half 0), dK += dS^T Q (half 1).""")]),
+    "dkv32_outer": (_DKV, [_OUTER]),
+    "dkv32_unroll1": (_DKV, _UNROLL(1)),
+    "dkv32_unroll4": (_DKV, _UNROLL(4)),
+    "dkv32_old": (_DKV, _DKV_OLD),
+    "dkv32_old_copies_only": (_DKV, _DKV_OLD + [
+        ("""        mma_nt(s, Qs, Ks);
+        if (want_dk) mma_nt(dp, dOs, Vs);
+""", ""),
+        ("""        if (want_dv) mma_tn(acc[0][c], Ps, dOs);
+        if (want_dk) mma_tn(acc[kSetDk][c], dSs, Qs);
+""", "")]),
+    "dkv32_old_products_only": (_DKV, _DKV_OLD + [(
+        """        load_tile(Qs, qb, sq.n, q0, n, c * kTile, width);
+        if (want_dk || NCHUNK == 1) load_tile(dOs, dob, sdo.n, q0, n, c * kTile, width);
+        if (NCHUNK > 1 || qt == 0) {
+          load_tile(Ks, kb, sk.n, k0, n, c * kTile, width);
+          if (want_dk) load_tile(Vs, vb, sv.n, k0, n, c * kTile, width);
+        }
+""", "")]),
+    "dkv32_old_without_exp": (_DKV, _DKV_OLD + [(
+        "expf(s[a][bb] * scale - row_lse)", "(s[a][bb] * scale - row_lse)")]),
     "wide_copies_only": (_FWD, [(
         """  float s[kWideKeys / 2];
   uint32_t pa[kWideKeys / 16][4];
@@ -136,35 +312,48 @@ flash_bwd_dq_tc_kernel(""", _NAMED_BARRIERS),
 }
 
 
-def build_variant(name: str):
-    """Compile variant ``name`` from a fresh copy of the sources and return
-    its C entry point; prints the compiler's resource lines for the
-    tensor-core kernels."""
-    source, edits = VARIANTS[name]
-    VARIANT_DIR.mkdir(parents=True, exist_ok=True)
-    for path in build.CSRC_DIR.iterdir():
-        shutil.copy(path, VARIANT_DIR)
-    text = (VARIANT_DIR / f"{source}.cu").read_text()
-    for number, (old, new) in enumerate(edits):
-        if text.count(old) != 1:
-            raise RuntimeError(f"variant {name}: edit {number} no longer applies to {source}.cu")
-        text = text.replace(old, new)
-    (VARIANT_DIR / f"{name}.cu").write_text(text)
-    lib = VARIANT_DIR / f"lib{name}.so"
-    done = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
-                           str(VARIANT_DIR / f"{name}.cu")], capture_output=True, text=True)
-    if done.returncode != 0:
-        raise RuntimeError(f"nvcc failed for variant {name}:\n{done.stdout}{done.stderr}")
-    lines = (done.stdout + done.stderr).splitlines()
-    for i, line in enumerate(lines):
-        if "Function properties" in line and ("_tc_kernel" in line or "_wide_kernel" in line):
-            print(f"  {name}: {line.split('for ')[-1][:48]}: {lines[i + 1].strip()}")
-        if "serializ" in line:
-            print(f"  {name}: {line}")
-    symbol = "rgie_" + source
-    fn = getattr(ctypes.CDLL(str(lib)), symbol)
-    fn.argtypes, fn.restype = FA._ARGTYPES[symbol], ctypes.c_int
-    return fn
+def build_variants(names):
+    """Compile each variant of ``names`` from its own copy of the sources (all
+    ``nvcc`` processes started together) and return their C entry points by
+    name; prints the compiler's resource lines for the kernels they change."""
+    jobs = {}
+    for name in names:
+        source, edits = VARIANTS[name]
+        where = VARIANT_DIR / name
+        where.mkdir(parents=True, exist_ok=True)
+        for path in build.CSRC_DIR.iterdir():
+            shutil.copy(path, where)
+        for number, edit in enumerate(edits):
+            # (old, new) edits the variant's source; (file, old, new) another file of csrc/.
+            target, old, new = edit if len(edit) == 3 else (f"{source}.cu", *edit)
+            text = (where / target).read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: edit {number} no longer applies to {target}")
+            (where / target).write_text(text.replace(old, new))
+        lib = where / f"lib{name}.so"
+        jobs[name] = (lib, subprocess.Popen(
+            [build.find_nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
+             str(where / f"{source}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    fns, outputs = {}, {name: proc.communicate()[0] for name, (_, proc) in jobs.items()}
+    failed = [name for name, (_, proc) in jobs.items() if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed for variants " + ", ".join(failed) + ":\n"
+                           + "\n".join(outputs[name] for name in failed))
+    for name, (lib, _) in jobs.items():
+        lines = outputs[name].splitlines()
+        for i, line in enumerate(lines):
+            if "Function properties" in line and any(key in line for key in (
+                    "_tc_kernel", "_wide_kernel", "IfLi", "float32_kernel")):
+                print(f"  {name}: {line.split('for ')[-1][:60]}: {lines[i + 1].strip()}; "
+                      f"{lines[i + 2].strip() if i + 2 < len(lines) else ''}")
+            if "serializ" in line:
+                print(f"  {name}: {line}")
+        symbol = "rgie_" + VARIANTS[name][0]
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes, fn.restype = FA._ARGTYPES[symbol], ctypes.c_int
+        fns[name] = fn
+    return fns
 
 
 def launch_dq(fn, q, k, v, do, lse, di, scale):
@@ -183,9 +372,20 @@ def launch_fwd(fn, q, k, v, scale):
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     strides = FA._stride_array(q, k, v, o)
     FA._check_status(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b,
-                        h, n, d, ctypes.addressof(strides), scale, 1, FA._stream(q)),
-                     "variant of forward")
+                        h, n, d, ctypes.addressof(strides), scale, int(q.dtype == torch.bfloat16),
+                        FA._stream(q)), "variant of forward")
     return o
+
+
+def launch_dkv(fn, q, k, v, do, lse, di, scale):
+    b, h, n, d = q.shape
+    dk, dv = FA._empty_like_heads_last(k), FA._empty_like_heads_last(v)
+    strides = FA._stride_array(q, k, v, do, dk, dv)
+    FA._check_status(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                        di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, n, d,
+                        ctypes.addressof(strides), scale, int(q.dtype == torch.bfloat16),
+                        FA._stream(q)), "variant of backward dK/dV")
+    return dk, dv
 
 
 def time_group(fns, reps=7):
@@ -205,21 +405,72 @@ def time_group(fns, reps=7):
     return [float(np.median(ts)) for ts in times]
 
 
-def make(shape, seed, device):
+def make(shape, seed, device, dtype=torch.bfloat16):
     b, h, n, d = shape
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32))
-            .to(device).to(torch.bfloat16).transpose(1, 2) for _ in range(4)]
+            .to(device).to(dtype).transpose(1, 2) for _ in range(4)]
 
 
-def main():
+def float32_section(fns, device):
+    """The float32 forward at the UNet's and the VAE's shapes and dK/dV at the
+    UNet's: the package's kernel, the one it replaced (``*_old``) and each
+    one's variants. The package's result is compared with the old kernel's."""
+    for kernel, shape in [("fwd32", (2, 5, 16384, 64)), ("fwd32", (1, 1, 16384, 512)),
+                          ("dkv32", (2, 5, 16384, 64))]:
+        names = [name for name in fns if name.startswith(kernel + "_")]
+        if not names:
+            continue
+        q, k, v, do = make(shape, 5, device, torch.float32)
+        scale = shape[3] ** -0.5
+        if kernel == "fwd32":
+            package = lambda: FA._launch_fwd(q, k, v, scale)[0]
+            variant = lambda name: launch_fwd(fns[name], q, k, v, scale)
+        else:
+            o, lse = FA.flash_attention_with_lse(q, k, v, scale)
+            di = FA._row_delta(o, do)
+            package = lambda: torch.cat(FA._launch_bwd_dkv(q, k, v, do, lse, di, scale), -1)
+            variant = lambda name: torch.cat(launch_dkv(fns[name], q, k, v, do, lse, di, scale), -1)
+        got = package()
+        if kernel + "_old" in fns:
+            old = variant(kernel + "_old")
+            torch.cuda.synchronize()
+            err = float((got - old).abs().max() / old.abs().max())
+            print(f"{kernel} {shape} float32: package against the old kernel, {err:.3e} of the "
+                  f"largest entry")
+        same = [name for name in names if name.endswith(("_outer", "_unroll1", "_unroll4", "_named"))]
+        for name in same:   # the same sums in the same order
+            if not torch.equal(variant(name), got):
+                raise AssertionError(f"variant {name} differs from the kernel at {shape}")
+        if same:
+            print(f"{kernel} {shape} float32: {', '.join(same)} equal the package's result")
+        ms = time_group([package] + [lambda name=name: variant(name) for name in names])
+        print(f"{kernel} {shape} float32: package {ms[0]:.3f} ms; "
+              + "; ".join(f"{name} {t:.3f}" for name, t in zip(names, ms[1:])))
+        del q, k, v, do
+
+
+def main(argv=None):
+    """``argv``: prefixes of the variants to build and time (all when empty),
+    e.g. ``fwd32 dkv32`` for the float32 kernels alone."""
+    import sys
+
+    prefixes = tuple(sys.argv[1:] if argv is None else argv)
     device = resolve_device("cuda")
     print(subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip())
     FA.build_kernels()
-    fns = {name: build_variant(name) for name in VARIANTS}
+    fns = build_variants([name for name in VARIANTS if not prefixes or name.startswith(prefixes)])
 
+    if any(name.startswith("dq_") for name in fns):
+        dq_section(fns, device)
+    if "wide_copies_only" in fns:
+        wide_section(fns, device)
+    float32_section(fns, device)
+
+
+def dq_section(fns, device):
     # The variants that keep the arithmetic give the package's result.
     for shape in [(1, 2, 100, 64), (1, 2, 300, 64), (1, 2, 520, 72), (1, 2, 2100, 128),
                   (1, 5, 9000, 64)]:
@@ -254,6 +505,8 @@ def main():
               + f" (the ring brings {gb:.2f} GB from L2: "
               f"{gb / ms[1 + names.index('dq_copies_only')]:.2f} TB/s alone)")
 
+
+def wide_section(fns, device):
     for shape in [(1, 1, 16384, 512), (1, 2, 16384, 256)]:
         q, k, v, _ = make(shape, 4, device)
         scale = shape[3] ** -0.5

@@ -14,8 +14,8 @@
 // element is summed in a fixed order: no atomics, and the result is the same
 // from run to run. Scores are recomputed from the saved log-sum-exp. P and
 // dS are rounded to the inputs' type before the second products (the TPU
-// kernel's `p.T.astype(do.dtype)`, `ds.T.astype(do.dtype)`). Two kernels,
-// chosen by shape in the C entry point:
+// kernel's `p.T.astype(do.dtype)`, `ds.T.astype(do.dtype)`). Three kernels,
+// chosen by shape in the C entry point (`kernel_route` names them):
 //
 // 1. `flash_bwd_dkv_tc_kernel`: bfloat16, head widths that are multiples of
 //    8 up to 128 (the note above the kernel has the design: transposed score
@@ -28,16 +28,22 @@
 //    2.4x its bound (the library's one backward call for dQ, dK and dV takes
 //    4.01 ms). The 64 x 64 `wgmma` shape (the widest the registers allow
 //    beside two accumulators) and the one barrier per tile are the open items.
-// 2. `flash_bwd_dkv_kernel`: float32 and the other bfloat16 widths, on the
-//    CUDA cores. Head widths above 64 are walked in 64-column chunks, the
-//    scores summed over the chunks once and one 4x4 patch per chunk and
-//    output kept in registers. Up to width 128 a block holds both dK and dV
-//    (64 registers). At width 512 the two would take 256 registers a thread,
-//    so the work is split over grid.z by output: the blocks of z = 0 sum dV
-//    (they need P only, so they skip dO V^T), those of z = 1 sum dK. The
-//    Q K^T products are then done twice (40 tile products per pair of tiles
-//    against the 32 a single block would do), and nothing else is repeated.
-//    The edit never differentiates the VAE, so only width 64 is on its path.
+// 2. `flash_bwd_dkv_float32_kernel`: float32 at head widths up to 128, on
+//    the CUDA cores: K and V resident, Q / dO / lse / di through a two-stage
+//    `cp.async` ring, and the four products handed to the block's two warp
+//    halves so that each runs with an 8 x 8 register patch (the note above
+//    the kernel has the design).
+// 3. `flash_bwd_dkv_kernel`: float32 above width 128 and the other bfloat16
+//    widths, on the CUDA cores. Head widths above 64 are walked in 64-column
+//    chunks, the scores summed over the chunks once and one 4x4 patch per
+//    chunk and output kept in registers. Up to width 128 a block holds both
+//    dK and dV (64 registers). At width 512 the two would take 256 registers
+//    a thread, so the work is split over grid.z by output: the blocks of z =
+//    0 sum dV (they need P only, so they skip dO V^T), those of z = 1 sum dK.
+//    The Q K^T products are then done twice (40 tile products per pair of
+//    tiles against the 32 a single block would do), and nothing else is
+//    repeated. The edit never differentiates the VAE, so only width 64 is on
+//    its path.
 
 #include "flash_attention_common.cuh"
 
@@ -170,6 +176,219 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* d_o, con
   kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)d_o, lse, di, (T*)dk, (T*)dv, heads, n,
       width, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+      Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]}, scale);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// float32, head widths up to 128: the CUDA cores, a ring of `cp.async`
+// copies, and the four products handed to the two halves of the block.
+//
+// A block owns KEYS = 16 KI key rows; K and V are copied once and stay
+// resident. Q, dO, lse and di tiles of QUERIES = 8 QJ queries go through a
+// two-stage ring (the copy of tile t + 1 runs while tile t is multiplied).
+// A thread could hold only one 8 x 8 patch of a score tile beside one of an
+// output (255 registers), and smaller patches are bound by shared-memory
+// reads (the float32 set's note in the shared header), so each product
+// belongs to one half of the block (warps 0-3, 4-7; a half seen as 16 x 8):
+//   half 0: S^T = K Q^T, P^T = exp(S^T scale - lse) -> shared memory;
+//   half 1: dP^T = V dO^T -> shared memory;
+//   (barrier) half 1: dS^T = P^T (dP^T - di) scale over its own entries;
+//   (barrier) half 0: dV += P^T dO;  half 1: dK += dS^T Q.
+// A thread: KI keys (ty + 16 i) x QJ queries (tx + 8 j) of a score tile, KI
+// keys x 8 columns (4 tx + 32 e) of each 64-column chunk of dV or dK. The
+// sums run over the tile's queries in a fixed order: no atomics. Three
+// barriers a tile. Width up to 64: KI = QJ = 8 (128 keys, 64 queries, every
+// product 0.25 values read a multiply-add); up to 128: KI = QJ = 4, so that
+// the resident K and V and two stages fit in shared memory.
+// ---------------------------------------------------------------------------
+
+template <int NCHUNK, int KI, int QJ>
+struct Dkv32 {
+  static constexpr int kKeys = 16 * KI;
+  static constexpr int kQueries = 8 * QJ;
+  static constexpr int kDPitch = 64 * NCHUNK + 4;            // % 32 == 4
+  static constexpr int kTPitch = kQueries + 8;               // % 32 == 8
+  static constexpr int kStageFloats = 2 * kQueries * kDPitch + 2 * kQueries;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (2 * (size_t)kKeys * kDPitch + 2 * (size_t)kKeys * kTPitch +
+                       2 * (size_t)kStageFloats);
+};
+
+template <int NCHUNK, int KI, int QJ>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_float32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ d_o,
+                             const float* __restrict__ lse, const float* __restrict__ di,
+                             float* __restrict__ dk, float* __restrict__ dv, int heads, int n,
+                             int width, Strides sq, Strides sk, Strides sv, Strides sdo,
+                             Strides sdk, Strides sdv, float scale) {
+  using G = Dkv32<NCHUNK, KI, QJ>;
+  constexpr int kKeys = G::kKeys, kQueries = G::kQueries, kDP = G::kDPitch, kTP = G::kTPitch;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + kKeys * kDP;
+  float* Pt = Vs + kKeys * kDP;
+  float* dSt = Pt + kKeys * kTP;
+  float* ring = dSt + kKeys * kTP;   // 2 stages: Q, dO, lse, di
+  const uint32_t ring_addr = smem_addr(ring);
+
+  const int half = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int ty = t >> 3, tx = t & 7;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.x * kKeys;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = d_o + b * sdo.b + h * sdo.h;
+  const float* lse_b = lse + (long long)bh * n;
+  const float* di_b = di + (long long)bh * n;
+  const int nc = (width + 63) / 64;
+  const int n_tiles = (n + kQueries - 1) / kQueries;
+
+  // Query tile qt into stage qt % 2: Q's and dO's chunks, then lse and di.
+  auto fetch = [&](int qt) {
+    if (qt < n_tiles) {
+      const int q0 = qt * kQueries;
+      const uint32_t stage = ring_addr + (uint32_t)((qt & 1) * G::kStageFloats) * 4u;
+      for (int c = 0; c < nc; ++c) {
+        copy_tile_f32<kQueries, kDP>(stage + (uint32_t)(c * 64) * 4u, qb, sq.n, q0, n, c * 64,
+                                     width);
+        copy_tile_f32<kQueries, kDP>(stage + (uint32_t)(kQueries * kDP + c * 64) * 4u, dob,
+                                     sdo.n, q0, n, c * 64, width);
+      }
+      if (threadIdx.x < 2 * kQueries) {
+        const int r = threadIdx.x % kQueries;
+        const bool valid = q0 + r < n;
+        const float* src = threadIdx.x < kQueries ? lse_b : di_b;
+        cp_async_4(stage + (uint32_t)(2 * kQueries * kDP + threadIdx.x) * 4u,
+                   valid ? src + q0 + r : src, valid);
+      }
+    }
+    cp_async_commit();
+  };
+
+  for (int c = 0; c < nc; ++c) {
+    copy_tile_f32<kKeys, kDP>(smem_addr(Ks + c * 64), k + b * sk.b + h * sk.h, sk.n, k0, n,
+                              c * 64, width);
+    copy_tile_f32<kKeys, kDP>(smem_addr(Vs + c * 64), v + b * sv.b + h * sv.h, sv.n, k0, n,
+                              c * 64, width);
+  }
+  fetch(0);   // K and V ride with tile 0
+
+  // dV (half 0) or dK (half 1): keys ty + 16 i, columns 64 c + 4 tx + 32 e.
+  float acc[NCHUNK][KI][8];
+#pragma unroll
+  for (int c = 0; c < NCHUNK; ++c) {
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[c][i][e] = 0.f;
+    }
+  }
+  const float scale2 = scale * kLog2e;
+  const float* A = half == 0 ? Ks : Vs;      // the score product's resident operand
+  float* T = half == 0 ? Pt : dSt;           // where its result goes
+  const float* Tsum = half == 0 ? Pt : dSt;  // the sum's left operand
+
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    // Tile qt has arrived, and every thread is done with tile qt - 1: its
+    // stage takes tile qt + 1, and P^T and dS^T may be written again.
+    cp_async_wait<0>();
+    __syncthreads();
+    fetch(qt + 1);
+    const float* Qs = ring + (qt & 1) * G::kStageFloats;
+    const float* dOs = Qs + kQueries * kDP;
+    const float* lse_s = dOs + kQueries * kDP;
+    const float* di_s = lse_s + kQueries;
+    const float* B = half == 0 ? Qs : dOs;
+
+    // S^T (half 0) or dP^T (half 1): entry [i][j] is key k0 + ty + 16 i,
+    // query tx + 8 j of the tile. Queries past n have zero Q, dO, lse and di:
+    // their P is 1 and meets only zeros. Keys past n reach only rows that
+    // are not stored.
+    float sc[KI][QJ];
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+#pragma unroll
+      for (int j = 0; j < QJ; ++j) sc[i][j] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < NCHUNK; ++c) {
+      if (c < nc) product_nt<KI, QJ, kDP, kDP, 8, 16>(sc, A + c * 64, B + c * 64, t);
+    }
+    if (half == 0) {
+#pragma unroll
+      for (int j = 0; j < QJ; ++j) {
+        const float neg_lse2 = -lse_s[tx + 8 * j] * kLog2e;   // base 2, one fma a score
+#pragma unroll
+        for (int i = 0; i < KI; ++i) sc[i][j] = fast_exp2(fmaf(sc[i][j], scale2, neg_lse2));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KI; ++i) {
+#pragma unroll
+      for (int j = 0; j < QJ; ++j) T[(ty + 16 * i) * kTP + tx + 8 * j] = sc[i][j];
+    }
+    __syncthreads();
+    // (Splitting this between the halves, each finishing half the entries,
+    // was slower: 35.96 against 33.77 ms on an NVIDIA H100 80GB HBM3 at 700 W.)
+    if (half == 1) {
+#pragma unroll
+      for (int j = 0; j < QJ; ++j) {
+        const float col_di = di_s[tx + 8 * j];
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          const int at = (ty + 16 * i) * kTP + tx + 8 * j;
+          dSt[at] = Pt[at] * (sc[i][j] - col_di) * scale;
+        }
+      }
+    }
+    __syncthreads();
+
+    // dV += P^T dO (half 0), dK += dS^T Q (half 1).
+    const float* X = half == 0 ? dOs : Qs;
+#pragma unroll
+    for (int c = 0; c < NCHUNK; ++c) {
+      if (c < nc) product_nn<KI, 8, kQueries, kTP, kDP, 8, 16>(acc[c], Tsum, X + c * 64, t);
+    }
+  }
+  cp_async_wait<0>();
+
+  float* out = half == 0 ? dv + b * sdv.b + h * sdv.h : dk + b * sdk.b + h * sdk.h;
+  const long long stride = half == 0 ? sdv.n : sdk.n;
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    const int r = k0 + ty + 16 * i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int c = 0; c < NCHUNK; ++c) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = c * 64 + 4 * tx + 32 * e;
+        if (c < nc && col < width) {
+          store4(out + (long long)r * stride + col,
+                 make_float4(acc[c][i][4 * e], acc[c][i][4 * e + 1], acc[c][i][4 * e + 2],
+                             acc[c][i][4 * e + 3]));
+        }
+      }
+    }
+  }
+}
+
+template <int NCHUNK, int KI, int QJ>
+int launch_dkv_f32(const void* q, const void* k, const void* v, const void* d_o, const float* lse,
+                   const float* di, void* dk, void* dv, int batch, int heads, int n, int width,
+                   const long long* st, float scale, cudaStream_t stream) {
+  using G = Dkv32<NCHUNK, KI, QJ>;
+  auto kernel = flash_bwd_dkv_float32_kernel<NCHUNK, KI, QJ>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + G::kKeys - 1) / G::kKeys, batch * heads);
+  kernel<<<grid, kThreads, G::kSmemBytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)d_o, lse, di, (float*)dk,
+      (float*)dv, heads, n, width, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
       Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
       Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]}, scale);
   return (int)cudaGetLastError();
@@ -446,10 +665,13 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* d_o, 
 // contiguous; `strides` holds (batch, head, row) strides in elements for
 // them in that order (18 values). lse, di: (batch, heads, n) float32,
 // contiguous. Returns cudaGetLastError() (0 on success), or -1 for a width
-// or a grid the kernel does not take. Dispatch by shape: bfloat16 with a
-// width that is a multiple of 8 up to 128 runs the tensor-core kernel (its
-// tensors 16-byte aligned, strides multiples of 8 elements); float32, and
-// every other bfloat16 width, the CUDA-core kernel.
+// or a grid the kernel does not take. Dispatch by shape (``kernel_route`` in
+// ops/kernels/flash_attention.py states the same rule): bfloat16 with a
+// width that is a multiple of 8 up to 128 runs the tensor-core kernel
+// ("tensor"; its tensors 16-byte aligned, strides multiples of 8 elements);
+// float32 up to width 128 the float32 kernel ("float32"; 16-byte aligned,
+// strides multiples of 4); float32 above 128 and every other bfloat16 width
+// the first CUDA-core kernel ("cuda_cores").
 extern "C" int rgie_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* d_o, const float* lse, const float* di,
                                             void* dk, void* dv, int batch, int heads, int n,
@@ -476,8 +698,14 @@ extern "C" int rgie_flash_attention_bwd_dkv(const void* q, const void* k, const 
     if (chunks == 2) RGIE_DKV(__nv_bfloat16, 2);
     RGIE_DKV(__nv_bfloat16, 8);
   }
-  if (chunks == 1) RGIE_DKV(float, 1);
-  if (chunks == 2) RGIE_DKV(float, 2);
+  if (chunks == 1) {
+    return launch_dkv_f32<1, 8, 8>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
+                                   scale, s);
+  }
+  if (chunks == 2) {
+    return launch_dkv_f32<2, 4, 4>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
+                                   scale, s);
+  }
   RGIE_DKV(float, 8);
 #undef RGIE_DKV
 }

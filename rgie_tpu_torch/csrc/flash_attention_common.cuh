@@ -1,14 +1,18 @@
 // Shared pieces of the flash-attention kernels (forward, backward dK/dV,
-// backward dQ). Two sets:
+// backward dQ). Three sets:
 //
 // 1. The CUDA-core set (float32 arithmetic): tile geometry, global<->shared
 //    tile copies for float32 and bfloat16, and the three 64x64x64
-//    register-blocked tile products. It serves float32 inputs and the
-//    bfloat16 head widths the tensor-core kernels do not take.
-// 2. The tensor-core set (bfloat16, at the end of the file): 128-byte
-//    swizzled bfloat16 tiles filled by 16-byte `cp.async` copies, `wgmma`
-//    shared-memory descriptors, the `wgmma` instructions themselves, and the
-//    accumulator -> A-fragment packing with its rounding to bfloat16.
+//    register-blocked tile products. It serves dQ in float32, dK/dV in
+//    float32 above width 128 and the bfloat16 head widths the tensor-core
+//    kernels do not take.
+// 2. The tensor-core set (bfloat16): 128-byte swizzled bfloat16 tiles
+//    filled by 16-byte `cp.async` copies, `wgmma` shared-memory descriptors,
+//    the `wgmma` instructions themselves, and the accumulator -> A-fragment
+//    packing with its rounding to bfloat16.
+// 3. The float32 set (at the end of the file): float32 tiles filled by
+//    16-byte `cp.async` copies and the two register-patch products of the
+//    float32 forward and dK/dV, for any split of a block's threads.
 //
 // Geometry of the CUDA-core set, the same in all three kernels. A block has
 // 256 threads seen as a 16x16 grid (ty = tid / 16, tx = tid % 16). Every tile
@@ -513,6 +517,117 @@ inline int atoms_for_width(int width) {
 inline int wide_atoms_for_width(int width) {
   if (width <= 128 || width % 64 != 0 || width > 512) return 0;
   return width <= 256 ? 4 : 8;
+}
+
+// ---------------------------------------------------------------------------
+// The float32 set: the forward and dK/dV on the CUDA cores for float32
+// inputs (`FFMA`, no tensor core: TF32 would drop 13 bits of each operand).
+//
+// What bounds a product on the CUDA cores is the path from shared memory to
+// the registers: it delivers 32 four-byte values a cycle to a
+// multiprocessor (a 16-byte `LDS.128` serves 8 threads a cycle, and a
+// broadcast does not serve more), while the four schedulers start 128
+// `FFMA` a cycle. A thread whose patch of a product is R x C sums loads
+// (R + C) values for 4 R C multiply-adds per 4-deep step, so only patches
+// of 8 x 8 and more (0.25 values a multiply-add) leave the `FFMA` the limit;
+// the first CUDA-core kernels' 4 x 4 patches (0.5) run at half the rate.
+// The float32 kernels therefore give each product 8 x 8 or 8 x 16 patches,
+// handing the products of one tile to different warps where one thread
+// could not hold two such patches (the registers, 255 a thread, are the
+// other limit).
+//
+// Tiles are float32 in shared memory, 64 columns wide (or a whole head
+// row), rows `pitch` floats apart, pitch % 32 == 4 for operands read along
+// the columns, 8 or 16 for P and dS written by columns of a score patch, so
+// that no access of a warp meets two addresses in one bank. Global -> shared
+// copies are 16-byte `cp.async` (no register on the way, nothing to widen)
+// into a ring of slots that one barrier per slot hands from the copies to
+// the products.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Pitch = 68;    // floats a row of a 64-column operand tile
+
+// Wait until at most N of this thread's groups of copies are still on their
+// way. A barrier follows before any thread reads what arrived.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start the copy of rows [row0, row0 + ROWS) and columns [col0, col0 + COLS)
+// of a (n_rows, width) float32 matrix into a tile of PITCH floats a row at
+// shared address `tile`, shared out over the block's 256 threads. Rows past
+// n_rows and columns past `width` (a multiple of 4) become zeros.
+template <int ROWS, int PITCH, int COLS = 64>
+__device__ __forceinline__ void copy_tile_f32(uint32_t tile, const float* base, long long stride,
+                                              int row0, int n_rows, int col0, int width) {
+  static_assert(ROWS * COLS % (4 * kThreads) == 0, "whole 16-byte copies a thread");
+#pragma unroll
+  for (int step = 0; step < ROWS * COLS / (4 * kThreads); ++step) {
+    const unsigned idx = threadIdx.x + step * kThreads;   // unsigned: / and % are shifts
+    const int r = idx / (COLS / 4), c = (idx % (COLS / 4)) * 4;
+    const bool valid = row0 + r < n_rows && col0 + c < width;
+    const float* src = valid ? base + (long long)(row0 + r) * stride + col0 + c : base;
+    cp_async_16(tile + (uint32_t)(r * PITCH + c) * 4u, src, valid);
+  }
+}
+
+// Thread t of a group of RS * TX threads, seen as RS x TX (ty = t / TX,
+// tx = t % TX), adds to its R x C patch
+//   acc[i][j] += sum over DEPTH columns k of A[ty + RS i][k] B[tx + TX j][k].
+template <int R, int C, int AP, int BP, int TX, int RS, int DEPTH = 64>
+__device__ __forceinline__ void product_nt(float (&acc)[R][C], const float* A, const float* B,
+                                           int t) {
+  const float* a_rows = A + (t / TX) * AP;
+  const float* b_rows = B + (t % TX) * BP;
+#pragma unroll 2
+  for (int k = 0; k < DEPTH; k += 4) {
+    float4 a[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = *reinterpret_cast<const float4*>(a_rows + RS * i * AP + k);
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      const float4 b = *reinterpret_cast<const float4*>(b_rows + TX * j * BP + k);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        acc[i][j] = fmaf(a[i].x, b.x, acc[i][j]);
+        acc[i][j] = fmaf(a[i].y, b.y, acc[i][j]);
+        acc[i][j] = fmaf(a[i].z, b.z, acc[i][j]);
+        acc[i][j] = fmaf(a[i].w, b.w, acc[i][j]);
+      }
+    }
+  }
+}
+
+// The same thread adds to its R x W patch (W / 4 groups of 4 columns, 4 TX
+// apart)
+//   acc[i][4 e + c] += sum over j < DEPTH of A[ty + RS i][j] X[j][4 tx + 4 TX e + c].
+template <int R, int W, int DEPTH, int AP, int XP, int TX, int RS>
+__device__ __forceinline__ void product_nn(float (&acc)[R][W], const float* A, const float* X,
+                                           int t) {
+  const float* a_rows = A + (t / TX) * AP;
+  const float* x_cols = X + 4 * (t % TX);
+#pragma unroll 2
+  for (int j = 0; j < DEPTH; j += 4) {
+    float4 a[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = *reinterpret_cast<const float4*>(a_rows + RS * i * AP + j);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+      for (int e = 0; e < W / 4; ++e) {
+        const float4 x = *reinterpret_cast<const float4*>(x_cols + (j + jj) * XP + 4 * TX * e);
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float p = jj == 0 ? a[i].x : jj == 1 ? a[i].y : jj == 2 ? a[i].z : a[i].w;
+          acc[i][4 * e + 0] = fmaf(p, x.x, acc[i][4 * e + 0]);
+          acc[i][4 * e + 1] = fmaf(p, x.y, acc[i][4 * e + 1]);
+          acc[i][4 * e + 2] = fmaf(p, x.z, acc[i][4 * e + 2]);
+          acc[i][4 * e + 3] = fmaf(p, x.w, acc[i][4 * e + 3]);
+        }
+      }
+    }
+  }
 }
 
 }  // namespace rgie

@@ -11,7 +11,8 @@
 // head) and moves only 4 N d elements, so at N = 16384 it sits far above the
 // memory roofline: for bfloat16 the limit is the tensor cores' rate (989
 // TFLOP/s: 0.695 ms at (2, 5, 16384, 64)), for float32 the CUDA cores' (67
-// TFLOP/s: 10.26 ms). Three kernels, chosen by shape in the C entry point:
+// TFLOP/s: 10.26 ms). Five kernels, chosen by shape in the C entry point
+// (`kernel_route` in ops/kernels/flash_attention.py names them):
 //
 // 1. `flash_fwd_tc_kernel`: bfloat16, head widths that are multiples of 8 up
 //    to 128 (what the UNet launches ~1500 times an edit). Both products run
@@ -47,13 +48,22 @@
 //    rgie_tpu_torch.cli.kernel_variants`; 3.28 of 3.82 ms with the two-stage
 //    ring of whole K + V tiles this kernel had first): blocks of more rows
 //    are the open item.
-// 3. `flash_fwd_kernel`: float32 (the tensor cores would drop its last 13
-//    mantissa bits) and the other bfloat16 widths (multiples of 4 that are
+// 3. `flash_fwd_float32_kernel` (widths up to 64) and
+//    `flash_fwd_float32_wide_kernel` (above 64, up to 512): float32 on the
+//    CUDA cores (the tensor cores would drop the last 13 mantissa bits). What
+//    bounds a product there is the path from shared memory to the registers
+//    (32 values a cycle against 128 `FFMA`), so each product gets an 8 x 8
+//    or 8 x 16 register patch, with the products of a tile split over the
+//    block's warps where one thread cannot hold two; K and V through a ring
+//    of 16-byte `cp.async` copies, Q resident. The note above the kernels
+//    has the design.
+// 4. `flash_fwd_kernel`: the other bfloat16 widths (multiples of 4 that are
 //    not of 8 up to 128, or not of 64 above). One block owns 64
 //    query rows; operands are widened to float32 in shared memory, each
 //    thread keeps a 4x4 patch of the score tile and a 4x4 patch per
 //    64-column chunk of the output in registers, and every shared-memory
-//    read is a float4 that feeds 16 multiply-adds on the CUDA cores.
+//    read is a float4 that feeds 16 multiply-adds on the CUDA cores. It
+//    served float32 too until the float32 kernels replaced it there.
 //
 // All round P to the inputs' type before P V (the TPU kernel's
 // `p.astype(v.dtype)`; the identity for float32) and keep the row maximum,
@@ -185,6 +195,430 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   const dim3 grid((n + kTile - 1) / kTile, batch * heads);
   kernel<<<grid, kThreads, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, heads, n, width,
+      Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
+      Strides{st[9], st[10], st[11]}, scale);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// float32, every head width: the CUDA cores, a ring of `cp.async` copies, Q
+// resident, and 8 x 8 or 8 x 16 register patches (the float32 set's note in
+// the shared header says why those sizes).
+//
+// Both kernels walk key tiles with the online softmax in base 2 (the scale
+// folded into one multiply a score, `ex2` on the special-function unit). The
+// 256 threads compute the score tile S = Q K^T as 16 x 16 (a thread: rows
+// ty + 16 i, keys tx + 16 j), keep the row maximum and their share of the row
+// sum in registers, and write P and the factor alpha that rescales each
+// row's sums to shared memory. O += P V is computed by the same threads seen
+// another way, which reads alpha there, and the barrier of the item that
+// brings V publishes P and alpha.
+//
+// K and V stream through a ring of slots: at the barrier of item i that item
+// has arrived and item i - 1 is no longer read, so the copy of item
+// i + SLOTS - 1 goes into its slot and SLOTS - 1 items are on their way while
+// one is multiplied. Q is copied once, with the first item.
+//
+// `flash_fwd_float32_kernel`, widths up to 64: a block owns 128 query rows
+// and walks tiles of 128 keys, a K tile and a V tile as the two items of a
+// tile in a three-slot ring. S: an 8 x 8 patch a thread. P V: the 128 x 64
+// output is only 32 values a thread, too few for an 8 x 8 patch, so each
+// half of the block (warps 0-3, 4-7) sums the product over one half of the
+// tile's keys with an 8 x 8 patch (rows ty + 16 i, columns 4 tx + 32 e of a
+// half seen as 16 x 8), and the two partial outputs are added once, at the
+// end. 128 + 64 + 64 registers of sums would not fit one thread.
+//
+// `flash_fwd_float32_wide_kernel`, widths above 64 up to 512 (the VAE's
+// single 512-wide head): 64 query rows (128 KB of Q resident at width 512)
+// and 128-key tiles. S: the K tile in items of 32 columns, a 4 x 8 patch a
+// thread (0.375 values read a multiply-add; an 8 x 8 patch would need a
+// 256-key tile, more shared memory than Q leaves; 64-key tiles with 4 x 4
+// patches took 18.86 ms against this design's 17.03 on an NVIDIA H100 80GB
+// HBM3 at 700 W). P V: a thread owns 8
+// rows x 16 columns of the output (rows warp + 8 i, columns 4 lane + 128 e),
+// all of its 512 columns in 128 registers, and V comes as items of 8 keys x
+// 512 columns (zero past the width), so one read of P feeds 16 columns. A
+// three-slot ring; the softmax folds the scale into the exponent's
+// multiply-add (`softmax_f32`).
+// ---------------------------------------------------------------------------
+
+// One step of the online softmax on a thread's R x C patch of raw scores
+// (rows ty + 16 i, keys k0 + tx + 16 j of a block seen as 16 x 16: the 16
+// threads of a row are 16 neighbouring lanes), in base 2 with the scale
+// folded into one multiply-add a score. The row maximum is taken over the raw
+// scores (their minimum when the scale is negative), so on a ragged tile the
+// keys past n are first set to a value that cannot win it, and their P to 0
+// after. Writes P (row pitch PP) and alpha, the factor that brings a row's
+// old sums to its new maximum, to shared memory.
+template <int R, int C, int PP>
+__device__ __forceinline__ void softmax_f32(float (&s)[R][C], float (&row_m)[R], float (&row_l)[R],
+                                            float* Ps, float* alpha_s, float scale2, int k0,
+                                            int n) {
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const bool ragged = k0 + 16 * C > n, positive = scale2 >= 0.f;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    if (ragged) {
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        if (k0 + tx + 16 * j >= n) s[i][j] = positive ? -3.0e38f : 3.0e38f;
+      }
+    }
+    float ext = s[i][0];
+    if (positive) {
+#pragma unroll
+      for (int j = 1; j < C; ++j) ext = fmaxf(ext, s[i][j]);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) ext = fmaxf(ext, __shfl_xor_sync(0xffffffffu, ext, off));
+    } else {
+#pragma unroll
+      for (int j = 1; j < C; ++j) ext = fminf(ext, s[i][j]);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) ext = fminf(ext, __shfl_xor_sync(0xffffffffu, ext, off));
+    }
+    const float m_new = fmaxf(row_m[i], ext * scale2);   // finite: key k0 exists
+    const float alpha = fast_exp2(row_m[i] - m_new);      // 0 at the first tile
+    row_m[i] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      float p = fast_exp2(fmaf(s[i][j], scale2, -m_new));
+      if (ragged && k0 + tx + 16 * j >= n) p = 0.f;
+      sum += p;
+      Ps[(ty + 16 * i) * PP + tx + 16 * j] = p;
+    }
+    row_l[i] = row_l[i] * alpha + sum;
+    if (tx == 0) alpha_s[ty + 16 * i] = alpha;
+  }
+}
+
+struct Fwd32 {   // widths up to 64
+  static constexpr int kRows = 128, kKeys = 128, kSlots = 3;
+  static constexpr int kPPitch = kKeys + 16;                 // % 32 == 16
+  static constexpr int kItemFloats = kKeys * kF32Pitch;
+  static constexpr int kStatFloats = 2 * kRows;              // alpha, 1 / row sum
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * ((size_t)kRows * kF32Pitch + (size_t)kRows * kPPitch + kStatFloats +
+                       (size_t)kSlots * kItemFloats);
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_float32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         float* __restrict__ lse, int heads, int n, int width, Strides sq,
+                         Strides sk, Strides sv, Strides so, float scale) {
+  using G = Fwd32;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ps = Qs + G::kRows * kF32Pitch;
+  float* alpha_s = Ps + G::kRows * G::kPPitch;
+  float* inv_s = alpha_s + G::kRows;
+  float* ring = inv_s + G::kRows;
+  const uint32_t ring_addr = smem_addr(ring);
+
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int half = threadIdx.x >> 7, t = threadIdx.x & 127;   // P V: a half, seen as 16 x 8
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.x * G::kRows;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int n_tiles = (n + G::kKeys - 1) / G::kKeys;
+
+  // Item 2 kt is K's tile kt, item 2 kt + 1 V's.
+  auto fetch = [&](int it) {
+    if (it < 2 * n_tiles) {
+      const bool is_v = it & 1;
+      copy_tile_f32<G::kKeys, kF32Pitch>(
+          ring_addr + (uint32_t)((it % G::kSlots) * G::kItemFloats) * 4u, is_v ? vb : kb,
+          is_v ? sv.n : sk.n, (it >> 1) * G::kKeys, n, 0, width);
+    }
+    cp_async_commit();   // an empty group past the last item keeps the count of groups
+  };
+  auto next_item = [&](int it) {
+    cp_async_wait<G::kSlots - 2>();
+    __syncthreads();
+    fetch(it + G::kSlots - 1);
+    return ring + (it % G::kSlots) * G::kItemFloats;
+  };
+
+  copy_tile_f32<G::kRows, kF32Pitch>(smem_addr(Qs), q + b * sq.b + h * sq.h, sq.n, q0, n, 0,
+                                     width);
+#pragma unroll
+  for (int it = 0; it + 1 < G::kSlots; ++it) fetch(it);      // Q rides with item 0
+
+  float acc[8][8];                  // this half's share of O: rows t / 8 + 16 i
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+  }
+  float row_m[8], row_l[8];         // rows ty + 16 i: running maximum (log2), share of the sum
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    row_m[i] = -INFINITY;
+    row_l[i] = 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int k0 = kt * G::kKeys;
+    float s[8][8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    }
+    const float* Ks = next_item(2 * kt);
+    product_nt<8, 8, kF32Pitch, kF32Pitch, 16, 16>(s, Qs, Ks, threadIdx.x);
+
+    // Online softmax; the 16 threads of a row are 16 neighbouring lanes.
+    // (The wide kernel's `softmax_f32`, which folds the scale into the
+    // exponent's multiply-add, costs this kernel spills: 19.4 against 17.3 ms
+    // on an NVIDIA H100 80GB HBM3 at 700 W.)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        s[i][j] = k0 + tx + 16 * j < n ? s[i][j] * scale2 : -INFINITY;
+        m = fmaxf(m, s[i][j]);
+      }
+      const float m_new = fmaxf(row_m[i], row_max16(m));   // finite: key k0 exists
+      const float alpha = fast_exp2(row_m[i] - m_new);      // 0 at the first tile
+      row_m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float p = fast_exp2(s[i][j] - m_new);
+        sum += p;
+        Ps[(ty + 16 * i) * G::kPPitch + tx + 16 * j] = p;
+      }
+      row_l[i] = row_l[i] * alpha + sum;
+      if (tx == 0) alpha_s[ty + 16 * i] = alpha;
+    }
+
+    // O += P V: this half's 64 keys of the tile.
+    const float* Vs = next_item(2 * kt + 1);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float alpha = alpha_s[t / 8 + 16 * i];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[i][e] *= alpha;
+    }
+    product_nn<8, 8, 64, G::kPPitch, kF32Pitch, 8, 16>(acc, Ps + 64 * half,
+                                                       Vs + 64 * half * kF32Pitch, t);
+  }
+  cp_async_wait<0>();   // the empty groups past the last item
+
+  // Row sums and the log-sum-exp from the score threads; the second half's
+  // partial output through shared memory (Ps is free once every thread is
+  // past its last product).
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float l = row_sum16(row_l[i]);
+    const int r = q0 + ty + 16 * i;
+    if (tx == 0) {
+      inv_s[ty + 16 * i] = 1.f / l;
+      if (r < n) lse[(long long)bh * n + r] = (row_m[i] + log2f(l)) * kLn2;
+    }
+  }
+  __syncthreads();
+  float* partial = Ps + (t / 8) * kF32Pitch + 4 * (t % 8);   // rows t / 8 + 16 i
+  if (half == 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        store4(partial + 16 * i * kF32Pitch + 32 * e,
+               make_float4(acc[i][4 * e], acc[i][4 * e + 1], acc[i][4 * e + 2], acc[i][4 * e + 3]));
+      }
+    }
+  }
+  __syncthreads();
+  if (half == 0) {
+    float* ob = o + b * so.b + h * so.h;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = t / 8 + 16 * i, r = q0 + row;
+      const float inv = inv_s[row];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 4 * (t % 8) + 32 * e;
+        const float4 other = *reinterpret_cast<const float4*>(partial + 16 * i * kF32Pitch + 32 * e);
+        if (r < n && col < width) {
+          store4(ob + (long long)r * so.n + col,
+                 make_float4((acc[i][4 * e] + other.x) * inv, (acc[i][4 * e + 1] + other.y) * inv,
+                             (acc[i][4 * e + 2] + other.z) * inv,
+                             (acc[i][4 * e + 3] + other.w) * inv));
+        }
+      }
+    }
+  }
+}
+
+struct Fwd32Wide {   // widths above 64 up to 512
+  static constexpr int kRows = 64, kKeys = 128, kSlots = 3;
+  static constexpr int kKCols = 32;                          // columns of a K item
+  static constexpr int kKPitch = kKCols + 4;                 // % 32 == 4
+  static constexpr int kVKeys = 8;                           // keys of a V item
+  static constexpr int kRowPitch = 512 + 4;                  // Q and V items, % 32 == 4
+  static constexpr int kPPitch = kKeys + 16;                 // % 32 == 16
+  static constexpr int kSlotFloats = kKeys * kKPitch;        // >= kVKeys * kRowPitch
+  static constexpr int kStatFloats = 2 * kRows;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * ((size_t)kRows * kRowPitch + (size_t)kRows * kPPitch + kStatFloats +
+                       (size_t)kSlots * kSlotFloats);
+  static_assert(kVKeys * kRowPitch <= kSlotFloats, "a V item fits a slot");
+};
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_float32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, float* __restrict__ o,
+                              float* __restrict__ lse, int heads, int n, int width, Strides sq,
+                              Strides sk, Strides sv, Strides so, float scale) {
+  using G = Fwd32Wide;
+  constexpr int kVItems = G::kKeys / G::kVKeys;              // V items a tile
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ps = Qs + G::kRows * G::kRowPitch;
+  float* alpha_s = Ps + G::kRows * G::kPPitch;
+  float* inv_s = alpha_s + G::kRows;
+  float* ring = inv_s + G::kRows;
+  const uint32_t ring_addr = smem_addr(ring);
+
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;   // P V: rows warp + 8 i
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.x * G::kRows;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int nk = (width + G::kKCols - 1) / G::kKCols;        // K items a tile
+  const int per_tile = nk + kVItems;
+  const int n_tiles = (n + G::kKeys - 1) / G::kKeys;
+
+  // Items of tile kt: K's columns in nk groups of 32, then V's keys in
+  // kVItems groups of kVKeys rows x 512 columns.
+  auto fetch = [&](int it) {
+    if (it < n_tiles * per_tile) {
+      const int kt = it / per_tile, rest = it - kt * per_tile;
+      const uint32_t slot = ring_addr + (uint32_t)((it % G::kSlots) * G::kSlotFloats) * 4u;
+      if (rest < nk) {
+        copy_tile_f32<G::kKeys, G::kKPitch, G::kKCols>(slot, kb, sk.n, kt * G::kKeys, n,
+                                                       rest * G::kKCols, width);
+      } else {
+        const int row0 = kt * G::kKeys + (rest - nk) * G::kVKeys;
+#pragma unroll
+        for (int c = 0; c < 8; c += 2) {   // two chunks of 8 rows a pass of the 256 threads
+          const int half = threadIdx.x >> 7, idx = threadIdx.x & 127;
+          const int r = idx >> 4, col = (c + half) * 64 + ((idx & 15) << 2);
+          const bool valid = row0 + r < n && col < width;
+          cp_async_16(slot + (uint32_t)(r * G::kRowPitch + col) * 4u,
+                      valid ? vb + (long long)(row0 + r) * sv.n + col : vb, valid);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  auto next_item = [&](int it) {
+    cp_async_wait<G::kSlots - 2>();
+    __syncthreads();
+    fetch(it + G::kSlots - 1);
+    return ring + (it % G::kSlots) * G::kSlotFloats;
+  };
+
+  for (int c = 0; c * 64 < width; ++c) {
+    copy_tile_f32<G::kRows, G::kRowPitch>(smem_addr(Qs + c * 64), qb, sq.n, q0, n, c * 64, width);
+  }
+#pragma unroll
+  for (int it = 0; it + 1 < G::kSlots; ++it) fetch(it);
+
+  float acc[8][16];                 // rows warp + 8 i, columns 4 lane + 128 e
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc[i][e] = 0.f;
+  }
+  float row_m[4], row_l[4];         // rows ty + 16 i
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    row_m[i] = -INFINITY;
+    row_l[i] = 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+
+  int it = 0;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    float s[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    }
+    for (int c = 0; c < nk; ++c) {
+      const float* Ks = next_item(it++);
+      product_nt<4, 8, G::kRowPitch, G::kKPitch, 16, 16, G::kKCols>(s, Qs + c * G::kKCols, Ks,
+                                                                     threadIdx.x);
+    }
+    softmax_f32<4, 8, G::kPPitch>(s, row_m, row_l, Ps, alpha_s, scale2, kt * G::kKeys, n);
+
+#pragma unroll 2
+    for (int g = 0; g < kVItems; ++g) {
+      const float* Vs = next_item(it++);
+      if (g == 0) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float alpha = alpha_s[warp + 8 * i];
+#pragma unroll
+          for (int e = 0; e < 16; ++e) acc[i][e] *= alpha;
+        }
+      }
+      product_nn<8, 16, G::kVKeys, G::kPPitch, G::kRowPitch, 32, 8>(
+          acc, Ps + g * G::kVKeys, Vs, threadIdx.x);
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float l = row_sum16(row_l[i]);
+    const int r = q0 + ty + 16 * i;
+    if (tx == 0) {
+      inv_s[ty + 16 * i] = 1.f / l;
+      if (r < n) lse[(long long)bh * n + r] = (row_m[i] + log2f(l)) * kLn2;
+    }
+  }
+  __syncthreads();
+  float* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = warp + 8 * i, r = q0 + row;
+    const float inv = inv_s[row];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 4 * lane + 128 * e;
+      if (r < n && col < width) {
+        store4(ob + (long long)r * so.n + col,
+               make_float4(acc[i][4 * e] * inv, acc[i][4 * e + 1] * inv, acc[i][4 * e + 2] * inv,
+                           acc[i][4 * e + 3] * inv));
+      }
+    }
+  }
+}
+
+template <typename G>
+int launch_fwd_f32(void (*kernel)(const float*, const float*, const float*, float*, float*, int,
+                                  int, int, Strides, Strides, Strides, Strides, float),
+                   const void* q, const void* k, const void* v, void* o, float* lse, int batch,
+                   int heads, int n, int width, const long long* st, float scale,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + G::kRows - 1) / G::kRows, batch * heads);
+  kernel<<<grid, kThreads, G::kSmemBytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, lse, heads, n, width,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]}, scale);
   return (int)cudaGetLastError();
@@ -664,11 +1098,14 @@ int launch_fwd_wide(const void* q, const void* k, const void* v, void* o, float*
 // `strides` holds (batch, head, row) strides in elements for q, k, v, o in
 // that order (12 values). lse: (batch, heads, n) float32, contiguous.
 // Returns cudaGetLastError() (0 on success), or -1 for a width or a grid the
-// kernel does not take. Dispatch by shape: bfloat16 with a width that is a
-// multiple of 8 up to 128 runs the tensor-core kernel, bfloat16 with a width
-// that is a multiple of 64 above 128 up to 512 the wide one (their tensors
-// 16-byte aligned, strides multiples of 8 elements); float32, and every
-// other bfloat16 width, the CUDA-core kernel.
+// kernel does not take. Dispatch by shape (``kernel_route`` in
+// ops/kernels/flash_attention.py states the same rule): bfloat16 with a width
+// that is a multiple of 8 up to 128 runs the tensor-core kernel ("tensor"),
+// bfloat16 with a width that is a multiple of 64 above 128 up to 512 the wide
+// one ("wide"; both take tensors 16-byte aligned, strides multiples of 8
+// elements); float32 at every width the float32 kernel ("float32"; 16-byte
+// aligned, strides multiples of 4); every other bfloat16 width the first
+// CUDA-core kernel ("cuda_cores").
 extern "C" int rgie_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                         float* lse, int batch, int heads, int n, int width,
                                         const long long* strides, float scale, int is_bf16,
@@ -698,8 +1135,11 @@ extern "C" int rgie_flash_attention_fwd(const void* q, const void* k, const void
     if (chunks == 2) RGIE_FWD(__nv_bfloat16, 2);
     RGIE_FWD(__nv_bfloat16, 8);
   }
-  if (chunks == 1) RGIE_FWD(float, 1);
-  if (chunks == 2) RGIE_FWD(float, 2);
-  RGIE_FWD(float, 8);
 #undef RGIE_FWD
+  if (chunks == 1) {
+    return launch_fwd_f32<Fwd32>(flash_fwd_float32_kernel, q, k, v, o, lse, batch, heads, n,
+                                 width, strides, scale, s);
+  }
+  return launch_fwd_f32<Fwd32Wide>(flash_fwd_float32_wide_kernel, q, k, v, o, lse, batch, heads,
+                                   n, width, strides, scale, s);
 }

@@ -52,7 +52,8 @@ class RunLog:
     """What one edit did, for callers that check or time it: the inner Adam
     steps each null-text outer step ran, the norm of each classifier-guidance
     gradient (0-dim tensors, left on their device), the seconds per phase and
-    the intermediate tensors of the last edit."""
+    the intermediate tensors of the last edit (among them the Adam moments of
+    the last null-text outer step, ``nto_adam_m`` and ``nto_adam_v``)."""
 
     nto_inner_steps: List[int] = dataclasses.field(default_factory=list)
     clf_grad_norms: List[torch.Tensor] = dataclasses.field(default_factory=list)
@@ -215,8 +216,7 @@ class InversionResamplingPipeline:
             if do_cfg:
                 embeds = prompt_embeds
                 if uncond_embeds_per_step is not None:
-                    embeds = torch.cat([uncond_embeds_per_step[i][None].to(embeds.dtype),
-                                        embeds[1:]], dim=0)
+                    embeds = torch.cat([uncond_embeds_per_step[i][None], embeds[1:]], dim=0)
                 eps_pair, _ = self._unet(torch.cat([lat, lat], dim=0), t, embeds, added)
                 eps_u, eps_c = eps_pair.chunk(2, dim=0)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)
@@ -235,7 +235,7 @@ class InversionResamplingPipeline:
                 # normalized (reference :126-142). Uncond row of the embeds.
                 uncond = prompt_embeds[0:1] if do_cfg else prompt_embeds
                 if uncond_embeds_per_step is not None and do_cfg:
-                    uncond = uncond_embeds_per_step[i][None].to(prompt_embeds.dtype)
+                    uncond = uncond_embeds_per_step[i][None]
                 with torch.enable_grad():
                     lat_in = lat.detach().requires_grad_(True)
                     _, mid = self._unet(lat_in, t, uncond, added_uncond)
@@ -305,7 +305,10 @@ class InversionResamplingPipeline:
         """NTO over an explicit outer-step window. ``i_vals`` are GLOBAL outer
         indices (the lr ramp and the early-stop threshold depend on them);
         ``pivots_rev[k]`` is the prev-pivot for step ``i_vals[k]`` (i.e.
-        pivot_latents[s - i - 1]). Returns (lat_cur, uncond, uncond_list
+        pivot_latents[s - i - 1]). The embeddings and Adam's moments keep the
+        type of ``uncond`` (float32 from the CLI's text tower, whatever the
+        UNet's type: the UNet casts its context on entry and the gradient
+        comes back in float32). Returns (lat_cur, uncond, uncond_list
         (K, ...))."""
         ts = self.sched.timesteps.tolist()
         base_lr = 1e-1 if self.is_xl else 1e-2
@@ -335,6 +338,7 @@ class InversionResamplingPipeline:
                 j, loss = j + 1, float(loss_t)
             if log is not None:
                 log.nto_inner_steps.append(j)
+                log.tensors.update(nto_adam_m=m, nto_adam_v=v)
             uncond = u
 
             # Final CFG step with the optimized embeddings (reference :209-216).

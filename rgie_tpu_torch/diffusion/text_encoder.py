@@ -18,6 +18,7 @@ import dataclasses
 import hashlib
 import math
 import os
+import zlib
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -194,7 +195,9 @@ VENDORED_BPE_PATH = os.path.join(os.path.dirname(__file__), "assets",
 
 
 def _load_bpe():
-    """Load the real CLIP BPE from RGIE_CLIP_BPE_PATH or the vendored asset."""
+    """Load the real CLIP BPE from RGIE_CLIP_BPE_PATH or the vendored asset.
+    A file that is missing or does not load (truncated, not gzip, not a
+    merges list) leaves the hash tokenizer in place, as in the JAX package."""
     global _BPE
     if _BPE is not None:
         return _BPE if _BPE is not False else None
@@ -204,7 +207,11 @@ def _load_bpe():
         return None
     from rgie_tpu_torch.diffusion.bpe import SimpleBPE
 
-    _BPE = SimpleBPE(path)
+    try:
+        _BPE = SimpleBPE(path)
+    except (OSError, EOFError, ValueError, zlib.error):   # unreadable, not gzip, not text
+        _BPE = False
+        return None
     return _BPE
 
 

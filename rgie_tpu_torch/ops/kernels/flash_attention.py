@@ -17,16 +17,30 @@ online softmax, the same log-sum-exp residual, a hand-written backward with
 the kernels' formulas); CUDA tensors launch the kernels or raise. There is
 no fallback between the two.
 
-Inside each C entry point a second dispatch goes by shape
-(``tensor_core_route``, a rule per kernel): bfloat16 inputs whose head width
-is a multiple of 8 up to 128 multiply on the tensor cores in all three
-kernels (``wgmma``, bfloat16 tiles in shared memory, ``cp.async`` ring); the
-forward also takes bfloat16 widths above 128 that are multiples of 64, up to
-512 (the VAE's single 512-wide head), on the tensor cores, its output split
-by columns over two warpgroups. float32 inputs and every other bfloat16 width
-(multiples of 4 that are not of 8; above 128 every width in the backward
-kernels, and those that are not multiples of 64 in the forward) run the
-float32 CUDA-core kernels. A launch that fails raises.
+Inside each C entry point a second dispatch goes by shape, the rule
+``kernel_route(kernel, dtype, width)`` names the kernel it runs:
+
+- ``"tensor"``: bfloat16 at head widths that are multiples of 8 up to 128,
+  in all three (``wgmma``, bfloat16 tiles in shared memory, ``cp.async``
+  ring);
+- ``"wide"``: the forward in bfloat16 at widths above 128 that are multiples
+  of 64, up to 512 (the VAE's single 512-wide head), on the tensor cores, its
+  output split by columns over two warpgroups;
+- ``"float32"``: the forward at every float32 width and dK/dV at float32
+  widths up to 128, on the CUDA cores with a ``cp.async`` ring, the query
+  tile (forward) or the key tile (dK/dV) resident, and 8 x 8 or 8 x 16
+  register patches, a tile's products split over the block's warps;
+- ``"cuda_cores"``: everything else (dQ in float32, dK/dV in float32 above
+  128, and the bfloat16 widths the tensor-core kernels do not take) on the
+  first CUDA-core kernels, which widen bfloat16 to float32 in shared memory.
+
+A launch that fails raises.
+
+The modules' gate (``flash_self_attention_ok``) also reads the environment
+variable ``RGIE_FLASH_ATTN`` once, when this module is imported, as the JAX
+package does: ``"0"`` closes the gate, so the attention modules take their
+matmul route on any device; any other value (``"auto"`` when unset) leaves the
+gate as it is.
 
 Rounding in bfloat16, as in the TPU kernels: the products take bfloat16
 operands and sum in float32; the probabilities P and the score gradients dS
@@ -40,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Tuple
 
 import torch
@@ -66,25 +81,45 @@ def head_width_supported(width: int) -> bool:
     return 0 < width <= MAX_HEAD_WIDTH and width % 4 == 0
 
 
-def tensor_core_route(kernel: str, dtype: torch.dtype, width: int) -> bool:
-    """Whether the entry point of ``kernel`` (one of ``KERNELS``) runs a
-    tensor-core kernel for this type and head width (the rule is repeated in
-    the C sources): bfloat16 at multiples of 8 up to 128 in all three, and in
-    the forward also at multiples of 64 above 128 up to 512."""
+#: ``"0"`` sends the attention modules to their matmul route whatever the
+#: shape; any other value leaves the gate as it is (the JAX package's switch,
+#: ``rgie_tpu/diffusion/unet.py:159-164``).
+FLASH_ATTN = os.environ.get("RGIE_FLASH_ATTN", "auto")
+
+def kernel_route(kernel: str, dtype: torch.dtype, width: int) -> str:
+    """The kernel the C entry point of ``kernel`` (one of ``KERNELS``) runs
+    for this type and head width: ``"tensor"``, ``"wide"``, ``"float32"`` or
+    ``"cuda_cores"`` (the same rule is written
+    out in each source's ``extern "C"`` function): bfloat16 at multiples of 8
+    up to 128 on the tensor cores in all three; the forward in bfloat16 also
+    at multiples of 64 above 128 up to 512 (``"wide"``); the forward in
+    float32 at every width and dK/dV in float32 up to 128 on the float32
+    kernels; the rest on the first CUDA-core kernels."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}: one of {KERNELS}")
-    if dtype != torch.bfloat16 or width <= 0:
-        return False
-    if width <= 128:
-        return width % 8 == 0
-    return kernel == "fwd" and width <= MAX_HEAD_WIDTH and width % 64 == 0
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention kernels take float32 or bfloat16, got {dtype}")
+    if not head_width_supported(width):
+        raise ValueError(f"flash_attention kernels take head widths that are multiples of 4 up "
+                         f"to {MAX_HEAD_WIDTH}, got {width}")
+    if dtype == torch.float32:
+        if kernel == "fwd" or (kernel == "bwd_dkv" and width <= 128):
+            return "float32"
+        return "cuda_cores"
+    if width <= 128 and width % 8 == 0:
+        return "tensor"
+    if kernel == "fwd" and width > 128 and width % 64 == 0:
+        return "wide"
+    return "cuda_cores"
 
 
 def flash_self_attention_ok(n: int, m: int, dim_head: int) -> bool:
     """The attention modules' gate: self-attention (``n == m``) over a long
-    sequence with a head width the kernels take. Anything else (the 77-key
-    cross-attention, the shorter levels of the UNet) stays on the
-    matmul-softmax-matmul path."""
+    sequence with a head width the kernels take, unless ``RGIE_FLASH_ATTN``
+    is ``"0"``. Anything else (the 77-key cross-attention, the shorter levels
+    of the UNet) stays on the matmul-softmax-matmul path."""
+    if FLASH_ATTN == "0":
+        return False
     return n == m and n >= MIN_FLASH_SEQ_LEN and head_width_supported(dim_head)
 
 
@@ -217,10 +252,11 @@ def load_width(dtype: torch.dtype, width: int) -> int:
     """Elements the kernels load at once from a tensor of this type and head
     width. Q, K, V and dO are read by all three kernels (the saved Q, K and V
     of a forward go on to both backward kernels), so this is the strictest
-    load of the three: 16 bytes (4 float32; 8 bfloat16 where any kernel takes
-    its tensor-core route), or the 4 bfloat16 (8 bytes) of the CUDA-core
-    kernels for the other widths."""
-    if dtype == torch.bfloat16 and any(tensor_core_route(kn, dtype, width) for kn in KERNELS):
+    load of the three routes: 16 bytes (4 float32; 8 bfloat16 where any
+    kernel takes the ``"tensor"`` or ``"wide"`` route), or the 4 bfloat16 (8
+    bytes) of the ``"cuda_cores"`` kernels for the other bfloat16 widths."""
+    if (dtype == torch.bfloat16 and head_width_supported(width)
+            and any(kernel_route(kn, dtype, width) in ("tensor", "wide") for kn in KERNELS)):
         return 8
     return 4
 

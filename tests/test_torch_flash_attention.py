@@ -159,13 +159,35 @@ def test_modules_take_the_flash_route_above_the_gate(monkeypatch):
         monkeypatch.setattr(U, "flash_attention", counting)
         monkeypatch.setattr(V, "flash_attention", counting)
         assert attn(x) is not None and not calls           # 96 positions: matmul route
-        monkeypatch.setattr(U, "flash_self_attention_ok", lambda n, m, d: n == m and n >= 96)
-        monkeypatch.setattr(V, "flash_self_attention_ok", lambda n, m, d: n == m and n >= 96)
+        monkeypatch.setattr(FA, "MIN_FLASH_SEQ_LEN", 96)     # the gate itself, lowered
         got, got_v, got_x = attn(x), vattn(xv), attn(x, ctx)
     assert calls == [(1, 2, 96, 4), (1, 1, 96, 8)]          # the cross-attention call is not one
     np.testing.assert_allclose(got.numpy(), expect.numpy(), atol=2e-6)
     np.testing.assert_allclose(got_v.numpy(), expect_v.numpy(), atol=2e-6)
     np.testing.assert_array_equal(got_x.numpy(), expect_x.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_route_table_over_widths(dtype):
+    """The route of every kernel at every head width 4..512 in steps of 4,
+    written out here as a table of ranges: what each C entry point runs."""
+    for width in range(4, 513, 4):
+        if dtype == torch.float32:
+            expect = {"fwd": "float32", "bwd_dkv": "float32" if width <= 128 else "cuda_cores",
+                      "bwd_dq": "cuda_cores"}
+        elif width <= 128 and width % 8 == 0:
+            expect = dict.fromkeys(FA.KERNELS, "tensor")
+        else:
+            wide = width > 128 and width % 64 == 0
+            expect = {"fwd": "wide" if wide else "cuda_cores", "bwd_dkv": "cuda_cores",
+                      "bwd_dq": "cuda_cores"}
+        got = {kn: FA.kernel_route(kn, dtype, width) for kn in FA.KERNELS}
+        assert got == expect, width
+    for width in (0, 6, 516, 1024):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            FA.kernel_route("fwd", dtype, width)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.kernel_route("fwd", torch.float16, 64)
 
 
 def test_wrapper_refuses_masks_and_mismatched_inputs():
@@ -200,9 +222,12 @@ def test_kernel_variants_still_apply_to_the_sources():
     assert KV.VARIANTS
     for name, (source, edits) in KV.VARIANTS.items():
         assert source in FA.KERNEL_SOURCES
-        text = (build.CSRC_DIR / f"{source}.cu").read_text()
-        for old, new in edits:
+        texts = {}
+        for edit in edits:      # (old, new) on the source, or (file, old, new)
+            target, old, new = edit if len(edit) == 3 else (f"{source}.cu", *edit)
+            text = texts.get(target) or (build.CSRC_DIR / target).read_text()
             assert text.count(old) == 1 and new != old, name
+            texts[target] = text.replace(old, new)
 
 
 # ---------------------------------------------------------------------------
@@ -227,8 +252,10 @@ def test_kernels_match_plain_on_the_card(cuda_device, shape, dtype):
     """In bfloat16 the widths 8, 32, 64, 72 and 128 run all three kernels on
     the tensor cores (zero-filled to 64 or 128 columns), at a ragged N too;
     192, 256 and 512 run the forward's wide tensor-core kernel and the
-    backward on the CUDA cores; 36 and 136 run the CUDA cores throughout, as
-    float32 does at every width."""
+    backward on the CUDA cores; 36 and 136 run the first CUDA-core kernels
+    throughout. float32 runs the float32 forward at every width, the float32
+    dK/dV up to 128 (zero-filled to 64 or 128 columns) and the first CUDA-core
+    kernels for the rest (``kernel_route``)."""
     b, h, n, d = shape
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(dtype).transpose(1, 2)
                    for a in _qkv(n + d, (b, n, h, d)))
@@ -275,6 +302,27 @@ def test_tensor_core_kernels_take_any_scale(cuda_device, scale, width):
     for got, expect in zip(grads, ref_grads):     # dq and dk are identically 0 at scale 0
         err = float((got.float() - expect.float()).abs().max())
         assert err <= 1e-2 * max(float(expect.float().abs().max()), 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [64, 128, 512])
+@pytest.mark.parametrize("scale", [-0.3, 0.0])
+def test_float32_kernels_take_any_scale(cuda_device, scale, width):
+    """The float32 forward folds the scale into one multiply a score before
+    the row maximum, and dK/dV into the exponent and dS: a negative or zero
+    scale, on a ragged shape, against the plain version."""
+    scale = scale * (64.0 / width) ** 0.5
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).transpose(1, 2)
+                   for a in _qkv(13, (1, 300, 2, width)))
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = FA.flash_attention(*leaves, sm_scale=scale)
+    grads = torch.autograd.grad(out, leaves, do)
+    o_ref, lse_ref = FA.reference_flash_attention(q, k, v, scale)
+    ref_grads = FA.reference_flash_attention_bwd(q, k, v, o_ref, lse_ref, do, scale)
+    assert float((out.detach() - o_ref).abs().max()) <= 2e-5
+    for got, expect in zip(grads, ref_grads):     # dq and dk are identically 0 at scale 0
+        err = float((got - expect).abs().max())
+        assert err <= 1e-4 * max(float(expect.abs().max()), 1e-6)
 
 
 @pytest.mark.cuda

@@ -108,32 +108,32 @@ def test_plain_float32_is_bit_identical_without_the_rounding_code(monkeypatch, n
 
 
 @pytest.mark.parametrize("kernel,dtype,width,expect_route,expect_load", [
-    # The forward (and, up to 128, every kernel: one rule).
-    ("fwd", torch.float32, 64, False, 4), ("fwd", torch.float32, 8, False, 4),
-    ("fwd", torch.bfloat16, 64, True, 8), ("fwd", torch.bfloat16, 8, True, 8),
-    ("fwd", torch.bfloat16, 128, True, 8), ("fwd", torch.bfloat16, 36, False, 4),
-    ("fwd", torch.bfloat16, 136, False, 4),
+    # The forward (and, up to 128, every kernel in bfloat16: one rule).
+    ("fwd", torch.float32, 64, "float32", 4), ("fwd", torch.float32, 8, "float32", 4),
+    ("fwd", torch.bfloat16, 64, "tensor", 8), ("fwd", torch.bfloat16, 8, "tensor", 8),
+    ("fwd", torch.bfloat16, 128, "tensor", 8), ("fwd", torch.bfloat16, 36, "cuda_cores", 4),
+    ("fwd", torch.bfloat16, 136, "cuda_cores", 4),
     # Above 128 the forward alone has a tensor-core kernel, at multiples of
     # 64; a tensor any kernel reads that way is loaded 8 elements at a time.
-    ("bwd_dkv", torch.bfloat16, 512, False, 8),
-    ("fwd", torch.bfloat16, 192, True, 8), ("fwd", torch.bfloat16, 256, True, 8),
-    ("fwd", torch.bfloat16, 512, True, 8), ("fwd", torch.bfloat16, 200, False, 4),
-    ("fwd", torch.float32, 512, False, 4),
-    ("bwd_dkv", torch.bfloat16, 64, True, 8), ("bwd_dkv", torch.bfloat16, 136, False, 4),
-    ("bwd_dkv", torch.bfloat16, 256, False, 8),
-    ("bwd_dq", torch.bfloat16, 8, True, 8), ("bwd_dq", torch.bfloat16, 64, True, 8),
-    ("bwd_dq", torch.bfloat16, 128, True, 8), ("bwd_dq", torch.bfloat16, 136, False, 4),
-    ("bwd_dq", torch.bfloat16, 512, False, 8), ("bwd_dq", torch.float32, 64, False, 4)])
+    ("bwd_dkv", torch.bfloat16, 512, "cuda_cores", 8),
+    ("fwd", torch.bfloat16, 192, "wide", 8), ("fwd", torch.bfloat16, 256, "wide", 8),
+    ("fwd", torch.bfloat16, 512, "wide", 8), ("fwd", torch.bfloat16, 200, "cuda_cores", 4),
+    ("fwd", torch.float32, 512, "float32", 4),
+    ("bwd_dkv", torch.bfloat16, 64, "tensor", 8), ("bwd_dkv", torch.bfloat16, 136, "cuda_cores", 4),
+    ("bwd_dkv", torch.bfloat16, 256, "cuda_cores", 8),
+    ("bwd_dq", torch.bfloat16, 8, "tensor", 8), ("bwd_dq", torch.bfloat16, 64, "tensor", 8),
+    ("bwd_dq", torch.bfloat16, 128, "tensor", 8), ("bwd_dq", torch.bfloat16, 136, "cuda_cores", 4),
+    ("bwd_dq", torch.bfloat16, 512, "cuda_cores", 8), ("bwd_dq", torch.float32, 64, "cuda_cores", 4)])
 def test_route_and_load_width_per_type_and_head_width(kernel, dtype, width, expect_route,
                                                       expect_load):
-    assert FA.tensor_core_route(kernel, dtype, width) is expect_route
+    assert FA.kernel_route(kernel, dtype, width) == expect_route
     assert FA.load_width(dtype, width) == expect_load
     assert FA.head_width_supported(width)
 
 
 def test_route_refuses_an_unknown_kernel():
     with pytest.raises(ValueError, match="unknown kernel"):
-        FA.tensor_core_route("bwd", torch.bfloat16, 64)
+        FA.kernel_route("bwd", torch.bfloat16, 64)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
