@@ -7,14 +7,16 @@ Phases (every check raises; nothing is caught):
 
 1. Device: require CUDA; print the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives
-   them, with the torch, CUDA and Triton versions.
-2. Kernels: build each kernel from this checkout's source (the CUDA C++
-   sources with ``nvcc`` for ``sm_90a``, one process per source, started
-   together; the Triton kernel at its first launch), run it on the card at
-   the main paths' shapes and hold it against its plain PyTorch version.
-   K1 (pointwise chain): the re-render's (1, 1024, 1024, 3), the batch
-   (4, 1024, 1024, 3) and a ragged (1, 1000, 760, 3), max abs error <= 2e-5
-   (the tolerance of tests/test_pallas.py). K2 (flash attention forward,
+   them, with the torch and CUDA versions.
+2. Kernels: build every kernel from this checkout's sources (the four CUDA
+   C++ sources with ``nvcc`` for ``sm_90a``, one process per source, started
+   together), run each on the card at the main paths' shapes and hold it
+   against its plain PyTorch version. K1 (pointwise chain): the re-render's
+   (1, 1024, 1024, 3), the batch (4, 1024, 1024, 3) and a ragged
+   (1, 1000, 760, 3), max abs error <= 2e-5 (the tolerance of
+   tests/test_pallas.py); timed per call (CUDA events around the wrapper,
+   host work included) at both 1024 px shapes, and on the device alone (the
+   call replayed from a CUDA graph). K2 (flash attention forward,
    backward dK/dV, backward dQ): the UNet's (2, 5, 16384, 64), the VAE's
    (1, 1, 16384, 512), the ragged (1, 5, 9000, 64) and (1, 1, 2100, 512),
    and widths 32, 128, 36 and 256, in float32 and bfloat16; tolerances in
@@ -23,8 +25,10 @@ Phases (every check raises; nothing is caught):
    shape. Kernel and plain version are timed with CUDA events in
    alternation; one PyTorch call that computes the same function
    (``scaled_dot_product_attention`` and its autograd backward) is timed
-   beside them as a yardstick only. Kernel and matmul routes are also timed
-   at (2, 10, 4096, 64), below the modules' gate, in both types.
+   beside them as a yardstick only; float32 dQ is also timed at
+   (1, 5, 16384, 64), the null-text step's shape. Kernel and matmul routes
+   are also timed at (2, 10, 4096, 64), below the modules' gate, in both
+   types.
 3. Slice A's path: the parametric-edit CLI's per-batch function
    (``edit_batch``) on 4 random 480x480 images: ResNet-50 ten-crop 480/448
    regressor and CLIP ViT-B/32 at 224 with random weights from the seed, 100
@@ -168,10 +172,6 @@ def flash_attention_phase(device, card):
 
     from rgie_tpu_torch.ops.kernels import flash_attention as FA
 
-    t0 = time.perf_counter()
-    FA.build_kernels()
-    print(f"flash attention: three CUDA sources built with nvcc for sm_90a in "
-          f"{time.perf_counter() - t0:.1f} s")
     for dtype, tol in K2_TOLERANCE.items():
         print(f"flash attention tolerance {dtype}: out {tol['out']:g} (bf16: of the largest "
               f"entry), lse {tol['lse']:g}, gradients {tol['grad']:g} of their largest entry")
@@ -250,6 +250,27 @@ def flash_attention_phase(device, card):
                   f"{bounds['dq'][0]:.3f}; library sdpa backward (dq, dk, dv at once) "
                   f"{dqt[2]:.3f}")
 
+    # float32 dQ at the null-text step's batch of 1 (800 of its launches in a
+    # 20-step float32 edit), beside the library's backward and the bound.
+    nto_shape = (1, 5, 16384, 64)
+    q, k, v, do = make(nto_shape, torch.float32, 11)
+    scale = 1.0 / nto_shape[3] ** 0.5
+    o, lse = FA.flash_attention_with_lse(q, k, v, scale)
+    di = FA._row_delta(o, do)
+    qs, ks, vs, dos = (FA._strided(t) for t in (q, k, v, do))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+    nto_dq = time_group([lambda: FA._launch_bwd_dq(qs, ks, vs, dos, lse, di, scale),
+                         lambda: torch.autograd.grad(lib_out, (qg, kg, vg), do,
+                                                     retain_graph=True)], 1, 5)
+    b, h, n, d = nto_shape
+    nto_bound = bound(6.0 * b * h * n * n * d, 5 * b * h * n * d * 4 + 2 * b * h * n * 4,
+                      torch.float32)
+    print(f"flash attention {nto_shape} float32 ms (median of 5, CUDA events) on {card}: dq "
+          f"kernel ({FA.kernel_route('bwd_dq', torch.float32, d)}) {nto_dq[0]:.3f} bound "
+          f"{nto_bound[0]:.3f}; library sdpa backward (dq, dk, dv at once) {nto_dq[1]:.3f}")
+    del q, k, v, do, o, lse, di, qs, ks, vs, dos, qg, kg, vg, lib_out
+
     # Below the gate: the kernel route against the modules' matmul route, in
     # both types (the gate's threshold is recorded against them, not moved).
     shape = (2, 10, 4096, 64)
@@ -307,6 +328,9 @@ def flash_attention_phase(device, card):
             float32_ms=t32[key][0], float32_plain_ms=t32[key][1],
             float32_bound_ms=t32["bounds"][key][0], float32_bound_by=t32["bounds"][key][1],
             float32_library_ms=t32[key][2], **common))
+    entries[2].update(float32_batch1_shape=list(nto_shape), float32_batch1_ms=nto_dq[0],
+                      float32_batch1_bound_ms=nto_bound[0],
+                      float32_batch1_library_ms=nto_dq[1])
     # The forward's second tensor-core kernel, at the VAE's single wide head.
     entries[0].update(wide_shape=list(vae_shape), wide_kernel_ms=wide["fwd"][0],
                       wide_plain_ms=wide["fwd"][1], wide_bound_ms=wide["bounds"]["fwd"][0],
@@ -534,11 +558,12 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     sys.path.insert(0, REPO)
-    import triton
-
     from rgie_tpu_torch.cli import optimize_image_param as cli
+    from rgie_tpu_torch.cli.kernel_variants import graph_ms
     from rgie_tpu_torch.device import resolve_device
     from rgie_tpu_torch.ops import chain as CH
+    from rgie_tpu_torch.ops.kernels import build
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
     from rgie_tpu_torch.ops.kernels import pointwise_chain as PC
 
     # ---- 1. device
@@ -547,14 +572,18 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True, timeout=60).stdout.strip()
     print(card)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, triton {triton.__version__}, "
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}")
 
     # ---- 2. kernels against their plain versions: the batch of 4 at the
     # output size, the re-render's own one-image call, and a ragged shape
-    rng = np.random.default_rng(0)
-    errors, times = [], {}
     t0 = time.perf_counter()
+    sources = FA.KERNEL_SOURCES + (PC.KERNEL_SOURCE,)
+    build.build_libraries(sources)
+    print(f"{len(sources)} CUDA sources ({', '.join(sources)}) built with nvcc for sm_90a in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    errors, times, device_times = [], {}, {}
     timed_shape = (NUM_IMAGES, OUTPUT_SIZE, OUTPUT_SIZE, 3)
     for shape in [timed_shape, (1, OUTPUT_SIZE, OUTPUT_SIZE, 3), (1, 1000, 760, 3)]:
         img = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(device)
@@ -569,9 +598,13 @@ def main():
         if shape[1] == OUTPUT_SIZE:
             times[shape] = time_group([lambda: PC.pointwise_chain(img, params),
                                        lambda: PC.reference_pointwise_chain(img, params)])
-            print(f"pointwise_chain {shape}: kernel {times[shape][0]:.4f} ms, plain "
-                  f"{times[shape][1]:.4f} ms (median of 20, CUDA events) on {card}")
+            device_times[shape] = graph_ms(lambda: PC.pointwise_chain(img, params))
+            print(f"pointwise_chain {shape}: kernel {times[shape][0]:.4f} ms a call, plain "
+                  f"{times[shape][1]:.4f} ms (median of 20, CUDA events around the call); "
+                  f"kernel on the device alone {device_times[shape]:.4f} ms (CUDA graph "
+                  f"replay) on {card}")
     kernel_ms, plain_ms = times[timed_shape]
+    one_image = (1, OUTPUT_SIZE, OUTPUT_SIZE, 3)
     # K1 reads the image once and writes it once; its arithmetic is far below
     # the float32 rate, so the memory rate bounds it.
     k1_bound_ms, k1_bound_by = bound(60.0 * np.prod(timed_shape), 2 * 4 * np.prod(timed_shape),
@@ -679,12 +712,14 @@ def main():
         entry["launches"] = a + b
 
     print(json.dumps({"kernels": [{
-        "name": "pointwise_chain", "route": "triton",
-        "source": "rgie_tpu_torch/ops/kernels/pointwise_chain_triton.py",
+        "name": "pointwise_chain", "route": "cuda",
+        "source": "rgie_tpu_torch/csrc/pointwise_chain.cu",
         "replaces": "rgie_tpu/ops/pallas/pointwise_chain.py:38",
         "replaces_function": "_prefix_kernel",
         "launches": launches, "max_abs_err": max(errors), "timed_shape": list(timed_shape),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+        "device_ms": device_times[timed_shape], "one_image_ms": times[one_image][0],
+        "one_image_plain_ms": times[one_image][1], "one_image_device_ms": device_times[one_image],
         "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None,
     }] + k2_entries}))
     print(card)

@@ -1,5 +1,6 @@
-"""Time variants of the flash-attention kernels against the package's own,
-inside one process on one card, to see what bounds a kernel.
+"""Time variants of the package's CUDA kernels (flash attention, K1) against
+the package's own, inside one process on one card, to see what bounds a
+kernel.
 
     python -m rgie_tpu_torch.cli.kernel_variants
 
@@ -29,7 +30,8 @@ The variants:
   and 4) and no longer each other. Compared: equal to the package's result.
 - ``dkv32_named``: half 0 starts dV += P^T dO without waiting for half 1's
   dS (half 1 meets only itself, on a named barrier).
-- ``fwd32_*``, ``dkv32_*``: the float32 forward and dK/dV. ``*_old`` is the
+- ``fwd32_*``, ``dkv32_*``, ``dq32_*``: the float32 forward, dK/dV and dQ
+  (dQ at (2, 5, 16384, 64) and (1, 5, 16384, 64)). ``*_old`` is the
   entry point sending float32 back to the first CUDA-core kernels (the
   design before the float32 kernels; compared with the package's result);
   ``*_copies_only`` keeps the copies, barriers and softmax and drops the
@@ -38,12 +40,29 @@ The variants:
   old and the new design; ``*_outer`` (all operands of a 4-deep step loaded,
   then the outer product one component at a time) and ``*_unroll1``,
   ``*_unroll4`` change the float32 products' loops in the shared header.
-  ``*_old`` is compared with the package's result (float32 tolerance), the
-  loop variants and ``dkv32_named`` must equal it; the others are not
-  compared.
+  ``dq32_one_half_ds`` has half 1 compute all of dS (as at width 128)
+  instead of both halves half of it. ``*_old`` is compared with the
+  package's result (float32 tolerance), the loop variants,
+  ``dkv32_named`` and ``dq32_one_half_ds`` must equal it; the others are
+  not compared.
+- ``k1_cooperative``: K1's two passes in one cooperative launch, as many
+  blocks as fit on the card at once walking the (block, image) items, a
+  grid-wide barrier between the passes; ``k1_switch``: the sector's colours
+  by a ``switch`` instead of selects; ``k1_four_groups``: 4096-pixel blocks,
+  16 pixels a thread read at once; all compared: equal to the package's
+  result (the mean's partial sums are grouped differently in
+  ``k1_four_groups``: within float32 rounding). ``k1_copies_only``: the prefix's arithmetic left out (not
+  compared). ``k1_triton_old`` (no source edit: the module
+  ``ops/kernels/pointwise_chain_triton.py`` and its wrapper, needs
+  ``triton``) is the design before the CUDA C++ kernel. Both are timed per
+  call (CUDA events around the wrapper, host work included) beside the
+  package's kernel at (4, 1024, 1024, 3) and (1, 1024, 1024, 3), and the
+  package's and the old design's device time alone (``graph_ms``: the call
+  captured once in a CUDA graph and replayed).
 
 A selection of variants: ``python -m rgie_tpu_torch.cli.kernel_variants
-fwd32 dkv32`` builds and times only the variants whose names start so.
+fwd32 dkv32`` builds and times only the variants whose names start so
+(``k1`` the K1 ones).
 
 Prints the card's name and power limit first. Needs CUDA and ``nvcc``.
 """
@@ -53,6 +72,7 @@ from __future__ import annotations
 import ctypes
 import shutil
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -60,10 +80,12 @@ import torch
 from rgie_tpu_torch.device import resolve_device
 from rgie_tpu_torch.ops.kernels import build
 from rgie_tpu_torch.ops.kernels import flash_attention as FA
+from rgie_tpu_torch.ops.kernels import pointwise_chain as PC
 
 VARIANT_DIR = build.BUILD_DIR.parent / "variants"
 
 _DQ, _FWD, _DKV = "flash_attention_bwd_dq", "flash_attention_fwd", "flash_attention_bwd_dkv"
+_K1 = PC.KERNEL_SOURCE
 
 _NAMED_BARRIERS = """
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -93,6 +115,86 @@ _DKV_OLD = [("""  if (chunks == 1) {
     return launch_dkv_f32<1, 8, 8>(""", """  if (chunks == 1) RGIE_DKV(float, 1);
   if (chunks == -1) {
     return launch_dkv_f32<1, 8, 8>(""")]
+_DQ_OLD = [("""  if (chunks == 1) {
+    return launch_dq_f32<1>(""", """  if (chunks == 1) RGIE_DQ(float, 1);
+  if (chunks == -1) {
+    return launch_dq_f32<1>(""")]
+
+_K1_BRANCH_FREE = """  const float h6 = delta == 0.f ? 0.f : hue;
+  const float s = cmax == 0.f ? 0.f : delta / cmax;
+  const float c = cmax * (s * p[kSaturation]);
+  const float x = c * (1.f - fabsf(h6 - 2.f * floorf(h6 * 0.5f) - 1.f));   // h6 >= 0
+  const float m = cmax - c;
+  // The JAX kernel's `pick` over sector = floor(h6) % 6 (h6 in [0, 6]): r is
+  // c in sectors 0 and 5, x in 1 and 4, else 0; g c in 1, 2, x in 0, 3; b c
+  // in 3, 4, x in 2, 5. One bit a sector.
+  const int whole = (int)h6;
+  const int bit = 1 << (whole == 6 ? 0 : whole);
+  const float nr = bit & 0x21 ? c : bit & 0x12 ? x : 0.f;
+  const float ng = bit & 0x06 ? c : bit & 0x09 ? x : 0.f;
+  const float nb = bit & 0x18 ? c : bit & 0x24 ? x : 0.f;
+"""
+_K1_BRANCHES = """  const float h6 = delta == 0.f ? 0.f : hue;
+  const float s = cmax == 0.f ? 0.f : delta / cmax;
+  const float c = cmax * (s * p[kSaturation]);
+  const float x = c * (1.f - fabsf(h6 - 2.f * floorf(h6 * 0.5f) - 1.f));
+  const float m = cmax - c;
+  const int sector = (int)floorf(h6) % 6;
+  float nr, ng, nb;
+  switch (sector) {
+    case 0: nr = c; ng = x; nb = 0.f; break;
+    case 1: nr = x; ng = c; nb = 0.f; break;
+    case 2: nr = 0.f; ng = c; nb = x; break;
+    case 3: nr = 0.f; ng = x; nb = c; break;
+    case 4: nr = x; ng = 0.f; nb = c; break;
+    default: nr = c; ng = 0.f; nb = x; break;
+  }
+"""
+
+# K1's two passes in one cooperative launch: a grid that fits on the card at
+# once walks the (block, image) items, pass 1, a grid-wide barrier, pass 2.
+_K1_COOPERATIVE = [
+    ("#include <stdint.h>\n", "#include <stdint.h>\n#include <cooperative_groups.h>\n"),
+    ("}  // namespace rgie_k1\n", """__global__ void __launch_bounds__(kThreads)
+k1_cooperative(const float* __restrict__ image, float* __restrict__ out,
+               float* __restrict__ partials, int hw, int blocks, int batch, ParamPointers pp) {
+  __shared__ __align__(16) float p[kParams];
+  __shared__ float scratch[kThreads / 32];
+  __shared__ float4 stage[kThreads * 3];
+  load_params(p, pp);
+  __syncthreads();
+  const int items = blocks * batch;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    gray_partial(image, partials, hw, blocks, item % blocks, item / blocks, p, scratch,
+                 stage + 3 * (threadIdx.x & ~31));
+  }
+  cooperative_groups::this_grid().sync();
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    contrast_block(image, out, partials, hw, blocks, item % blocks, item / blocks, p, scratch,
+                   stage + 3 * (threadIdx.x & ~31));
+  }
+}
+
+}  // namespace rgie_k1
+"""),
+    ("""  k1_gray_partials<<<grid, kThreads, 0, s>>>(image, partials, hw, pp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  k1_contrast<<<grid, kThreads, 0, s>>>(image, out, partials, hw, pp);
+  return (int)cudaGetLastError();""", """  (void)grid;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k1_cooperative, kThreads, 0);
+  const int n_grid = blocks * batch < sms * per_sm ? blocks * batch : sms * per_sm;
+  const float* image_a = image;
+  float *out_a = out, *partials_a = partials;
+  int hw_a = hw, blocks_a = blocks, batch_a = batch;
+  ParamPointers pp_a = pp;
+  void* args[] = {&image_a, &out_a, &partials_a, &hw_a, &blocks_a, &batch_a, &pp_a};
+  return (int)cudaLaunchCooperativeKernel((const void*)k1_cooperative, dim3(n_grid),
+                                          dim3(kThreads), args, 0, s);"""),
+]
 
 # The float32 products' loops in the shared header: all operands of a 4-deep
 # step loaded first, then the outer product one component at a time; and the
@@ -298,6 +400,54 @@ flash_bwd_dq_tc_kernel(""", _NAMED_BARRIERS),
 """, "")]),
     "dkv32_old_without_exp": (_DKV, _DKV_OLD + [(
         "expf(s[a][bb] * scale - row_lse)", "(s[a][bb] * scale - row_lse)")]),
+    "dq32_copies_only": (_DQ, [
+        ("      product_nt<kQI, 8, kDP, kDP, 8, 16>(sc, A + c * 64, B + c * 64, t);\n",
+         "      (void)B;\n"),
+        ("    product_nn<8, 8, 32, kPP, kDP, G::kTX, G::kRS>(acc, Ps + 32 * half, Ks + 32 * half * kDP, t);\n",
+         "")]),
+    "dq32_products_only": (_DQ, [(
+        "    if (kt < n_tiles) {\n      const uint32_t stage = ring_addr",
+        "    if (kt < 0) {\n      const uint32_t stage = ring_addr")]),
+    "dq32_without_exp": (_DQ, [(
+        "fast_exp2(fmaf(sc[i][j], scale2, neg_lse2))", "fmaf(sc[i][j], scale2, neg_lse2)")]),
+    # dS computed by half 1 alone, as at width 128.
+    "dq32_one_half_ds": (_DQ, [(
+        "  static constexpr bool kSplitDs = NCHUNK == 1;",
+        "  static constexpr bool kSplitDs = false;")]),
+    "dq32_old": (_DQ, _DQ_OLD),
+    "dq32_old_copies_only": (_DQ, _DQ_OLD + [
+        ("        mma_nt(s, Qs, Ks);\n        mma_nt(dp, dOs, Vs);\n", ""),
+        ("        mma_nn(acc[c], dSs, Ks);\n", "")]),
+    "dq32_old_products_only": (_DQ, _DQ_OLD + [(
+        """        if (NCHUNK > 1 || kt == 0) {
+          load_tile(Qs, qb, sq.n, q0, n, c * kTile, width);
+          load_tile(dOs, dob, sdo.n, q0, n, c * kTile, width);
+        }
+        load_tile(Ks, kb, sk.n, k0, n, c * kTile, width);
+        load_tile(Vs, vb, sv.n, k0, n, c * kTile, width);
+""", """        if (NCHUNK > 1 || kt == 0) {
+          load_tile(Qs, qb, sq.n, q0, n, c * kTile, width);
+          load_tile(dOs, dob, sdo.n, q0, n, c * kTile, width);
+        }
+""")]),
+    "dq32_old_without_exp": (_DQ, _DQ_OLD + [(
+        "expf(s[a][bb] * scale - row_lse[a])", "(s[a][bb] * scale - row_lse[a])")]),
+    "k1_cooperative": (_K1, _K1_COOPERATIVE),
+    # The prefix's arithmetic left out (each pass only reads and writes).
+    "k1_copies_only": (_K1, [
+        ("        prefix(px[3 * i], px[3 * i + 1], px[3 * i + 2], p);\n        gray +=",
+         "        gray +="),
+        ("      prefix(px[3 * i], px[3 * i + 1], px[3 * i + 2], p);\n#pragma unroll\n",
+         "#pragma unroll\n")]),
+    # Four groups of 4 pixels a thread in blocks of 4096 pixels, all read
+    # before the arithmetic, at the registers that takes (3 blocks a
+    # multiprocessor). Compared: equal to the package's result.
+    "k1_four_groups": (_K1, [
+        ("constexpr int kGroups = 2;", "constexpr int kGroups = 4;"),
+        ("constexpr int kBlocksPerSM = 4;", "constexpr int kBlocksPerSM = 1;")]),
+    # The sector's colours by a switch (a branch a sector) instead of
+    # selects. Compared: equal to the package's result.
+    "k1_switch": (_K1, [(_K1_BRANCH_FREE, _K1_BRANCHES)]),
     "wide_copies_only": (_FWD, [(
         """  float s[kWideKeys / 2];
   uint32_t pa[kWideKeys / 16][4];
@@ -344,14 +494,15 @@ def build_variants(names):
         lines = outputs[name].splitlines()
         for i, line in enumerate(lines):
             if "Function properties" in line and any(key in line for key in (
-                    "_tc_kernel", "_wide_kernel", "IfLi", "float32_kernel")):
+                    "_tc_kernel", "_wide_kernel", "IfLi", "float32_kernel", "k1_")):
                 print(f"  {name}: {line.split('for ')[-1][:60]}: {lines[i + 1].strip()}; "
                       f"{lines[i + 2].strip() if i + 2 < len(lines) else ''}")
             if "serializ" in line:
                 print(f"  {name}: {line}")
         symbol = "rgie_" + VARIANTS[name][0]
         fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes, fn.restype = FA._ARGTYPES[symbol], ctypes.c_int
+        fn.argtypes = PC._ARGTYPES if symbol == "rgie_" + _K1 else FA._ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
         fns[name] = fn
     return fns
 
@@ -362,7 +513,7 @@ def launch_dq(fn, q, k, v, do, lse, di, scale):
     strides = FA._stride_array(q, k, v, do, dq)
     FA._check_status(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
                         di.data_ptr(), dq.data_ptr(), b, h, n, d, ctypes.addressof(strides), scale,
-                        1, FA._stream(q)), "variant of backward dQ")
+                        int(q.dtype == torch.bfloat16), FA._stream(q)), "variant of backward dQ")
     return dq
 
 
@@ -413,11 +564,13 @@ def make(shape, seed, device, dtype=torch.bfloat16):
 
 
 def float32_section(fns, device):
-    """The float32 forward at the UNet's and the VAE's shapes and dK/dV at the
-    UNet's: the package's kernel, the one it replaced (``*_old``) and each
-    one's variants. The package's result is compared with the old kernel's."""
+    """The float32 forward at the UNet's and the VAE's shapes, dK/dV at the
+    UNet's and dQ at the UNet's at batch 2 and 1 (the null-text step's): the
+    package's kernel, the one it replaced (``*_old``) and each one's
+    variants. The package's result is compared with the old kernel's."""
     for kernel, shape in [("fwd32", (2, 5, 16384, 64)), ("fwd32", (1, 1, 16384, 512)),
-                          ("dkv32", (2, 5, 16384, 64))]:
+                          ("dkv32", (2, 5, 16384, 64)), ("dq32", (2, 5, 16384, 64)),
+                          ("dq32", (1, 5, 16384, 64))]:
         names = [name for name in fns if name.startswith(kernel + "_")]
         if not names:
             continue
@@ -426,6 +579,11 @@ def float32_section(fns, device):
         if kernel == "fwd32":
             package = lambda: FA._launch_fwd(q, k, v, scale)[0]
             variant = lambda name: launch_fwd(fns[name], q, k, v, scale)
+        elif kernel == "dq32":
+            o, lse = FA.flash_attention_with_lse(q, k, v, scale)
+            di = FA._row_delta(o, do)
+            package = lambda: FA._launch_bwd_dq(q, k, v, do, lse, di, scale)
+            variant = lambda name: launch_dq(fns[name], q, k, v, do, lse, di, scale)
         else:
             o, lse = FA.flash_attention_with_lse(q, k, v, scale)
             di = FA._row_delta(o, do)
@@ -438,7 +596,8 @@ def float32_section(fns, device):
             err = float((got - old).abs().max() / old.abs().max())
             print(f"{kernel} {shape} float32: package against the old kernel, {err:.3e} of the "
                   f"largest entry")
-        same = [name for name in names if name.endswith(("_outer", "_unroll1", "_unroll4", "_named"))]
+        same = [name for name in names
+                if name.endswith(("_outer", "_unroll1", "_unroll4", "_named", "_one_half_ds"))]
         for name in same:   # the same sums in the same order
             if not torch.equal(variant(name), got):
                 raise AssertionError(f"variant {name} differs from the kernel at {shape}")
@@ -468,6 +627,92 @@ def main(argv=None):
     if "wide_copies_only" in fns:
         wide_section(fns, device)
     float32_section(fns, device)
+    if not prefixes or any("k1".startswith(p) or p.startswith("k1") for p in prefixes):
+        k1_section(fns, device)
+
+
+def graph_ms(fn, reps=50):
+    """Device milliseconds of one ``fn()``: the call captured once in a CUDA
+    graph and replayed ``reps`` times between two CUDA events, so that the
+    host's work between launches is not counted."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k1_section(fns, device):
+    """K1 per call (the wrapper between CUDA events) and on the device alone:
+    the package's kernel, the cooperative single launch, and the Triton
+    design before it, at the re-render's batch and at its one-image call."""
+    import os
+
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build.BUILD_DIR.parent / "triton"))
+    try:
+        from rgie_tpu_torch.ops.kernels import pointwise_chain_triton as T
+    except ImportError:
+        T = None
+        print("k1_triton_old: triton is not installed, not timed")
+    from rgie_tpu_torch.ops import chain as CH
+
+    rng = np.random.default_rng(1)
+    for shape in [(4, 1024, 1024, 3), (1, 1024, 1024, 3)]:
+        image = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32)).to(device)
+        params = CH.unpack_params(torch.from_numpy(
+            np.asarray(CH.pack_params(CH.init_params())) + rng.uniform(-0.2, 0.2, 41)
+            .astype(np.float32)).to(device))
+        calls = {"package": lambda: PC.pointwise_chain(image, params)}
+        for name in ("k1_cooperative", "k1_switch", "k1_four_groups", "k1_copies_only"):
+            if name in fns:
+                calls[name] = lambda name=name: PC.launch(fns[name], image, params)
+        if T is not None:
+            calls["k1_triton_old"] = lambda: T.old_pointwise_chain(image, params)
+        expect = calls["package"]()
+        for name, fn in calls.items():
+            got = fn()
+            torch.cuda.synchronize()
+            err = float((got - expect).abs().max())
+            limit = {"k1_cooperative": 0.0, "k1_switch": 0.0, "k1_four_groups": 2e-6}
+            if err > limit.get(name, float("inf")):
+                raise AssertionError(f"{name} differs from the package's K1 at {shape}")
+            print(f"K1 {shape}: {name} against the package's result, max abs {err:.3e}")
+        ms = time_group(list(calls.values()), reps=21)
+        device_ms = {name: graph_ms(fn) for name, fn in calls.items() if name != "k1_cooperative"}
+        print(f"K1 {shape} per call (CUDA events around the wrapper, median of 21): "
+              + "; ".join(f"{name} {t:.4f} ms" for name, t in zip(calls, ms))
+              + "; device alone (CUDA graph replay): "
+              + "; ".join(f"{name} {t:.4f} ms" for name, t in device_ms.items()))
+        # chip_smoke.py times each call right after the plain version (many
+        # small ops); the host's share of a call is then larger.
+        plain = lambda: PC.reference_pointwise_chain(image, params)
+        after = {name: time_group([calls[name], plain], reps=21)[0]
+                 for name in ("package", "k1_triton_old") if name in calls}
+        host = {}
+        for label, before in (("warm", calls["package"]), ("after the plain version", plain)):
+            seconds = []
+            for _ in range(21):
+                before()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                calls["package"]()
+                seconds.append(time.perf_counter() - t0)
+            host[label] = 1e3 * float(np.median(seconds))
+        print(f"K1 {shape} per call right after the plain version: "
+              + "; ".join(f"{name} {t:.4f} ms" for name, t in after.items())
+              + "; the package's host time a call (median of 21): "
+              + "; ".join(f"{label} {t:.4f} ms" for label, t in host.items()))
 
 
 def dq_section(fns, device):

@@ -13,7 +13,8 @@
 // summed in a fixed order: no atomics, and the result is the same from run to
 // run. Scores are recomputed from the saved log-sum-exp. dS is rounded to the
 // inputs' type before dS K (the TPU kernel's `ds.astype(k.dtype)`; the
-// identity for float32). Two kernels, chosen by shape in the C entry point:
+// identity for float32). Three kernels, chosen by shape in the C entry point
+// (`kernel_route` in ops/kernels/flash_attention.py names them):
 //
 // 1. `flash_bwd_dq_tc_kernel`: bfloat16, head widths that are multiples of 8
 //    up to 128 (what the UNet's backward launches 840 times an edit; the note
@@ -33,14 +34,28 @@
 //    warpgroups do at the same time (one barrier per tile); letting them run
 //    free of each other on named barriers measured slower (3.30 ms). Open
 //    items.
-// 2. `flash_bwd_dq_kernel`: float32 (the tensor cores would drop its last 13
-//    mantissa bits) and the other bfloat16 widths, on the CUDA cores. One
-//    block owns 64 query rows; Q and dO stay resident in shared memory at
-//    width 64 and the scores never leave the chip. A head wider than 64 is
-//    walked in 64-column chunks as in the forward kernel: the scores are
-//    summed over the chunks once, and the block keeps one 4x4 patch of dQ per
-//    chunk in registers (128 at width 512), so no product is repeated; the
-//    price is that Q, dO, K and V are reloaded chunk by chunk.
+// 2. `flash_bwd_dq_float32_kernel`: float32 at head widths up to 128, on the
+//    CUDA cores (the tensor cores would drop the last 13 mantissa bits of
+//    every operand): Q and dO resident, K and V through a two-stage
+//    `cp.async` ring, and the products of a tile handed to the block's two
+//    warp halves so that each runs with an 8 x 8 register patch (the note
+//    above the kernel has the design). 238 registers, no spill; 209 KB of
+//    dynamic shared memory at width 64. Measured at (2, 5, 16384, 64) on an
+//    NVIDIA H100 80GB HBM3 at 700 W (`python -m
+//    rgie_tpu_torch.cli.kernel_variants dq32`): 25.74 ms against the 32.52
+//    of the kernel before it, 1.67x its bound; the products alone 24.63, the
+//    copies alone 3.19, the exponential 0.55. What is left is the loops'
+//    rate: both the `FFMA` and the shared-memory reads need 12,288 cycles a
+//    tile, and the loops reach about 62% of that.
+// 3. `flash_bwd_dq_kernel`: float32 above width 128 and the other bfloat16
+//    widths, on the CUDA cores. One block owns 64 query rows; Q and dO stay
+//    resident in shared memory at width 64 and the scores never leave the
+//    chip. A head wider than 64 is walked in 64-column chunks as in the
+//    forward kernel: the scores are summed over the chunks once, and the
+//    block keeps one 4x4 patch of dQ per chunk in registers (128 at width
+//    512), so no product is repeated; the price is that Q, dO, K and V are
+//    reloaded chunk by chunk. The edit never differentiates the VAE, so only
+//    width 64 is on its path, and there the float32 kernel runs.
 
 #include "flash_attention_common.cuh"
 
@@ -150,6 +165,253 @@ int launch_dq(const void* q, const void* k, const void* v, const void* d_o, cons
       (const T*)q, (const T*)k, (const T*)v, (const T*)d_o, lse, di, (T*)dq, heads, n, width,
       Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]}, Strides{st[6], st[7], st[8]},
       Strides{st[9], st[10], st[11]}, Strides{st[12], st[13], st[14]}, scale);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// float32, head widths up to 128: the CUDA cores, a ring of `cp.async`
+// copies, and the three products of a tile handed to the two halves of the
+// block.
+//
+// A block owns kRows = 128 / NCHUNK query rows; Q and dO are copied once and
+// stay resident, with -lse log2(e) and di beside them. K and V tiles of 64
+// keys go through a two-stage ring (the copy of tile t + 1 runs while tile t
+// is multiplied; a third stage measured no faster). A thread holds one 8 x 8 patch of a score tile beside one
+// of dQ (255 registers), and smaller patches are bound by shared-memory
+// reads (the float32 set's note in the shared header), so (warps 0-3 and
+// 4-7; a half seen as 16 x 8 for the scores):
+//   half 0: S = Q K^T, P = exp(S scale - lse), half of it -> shared memory;
+//   half 1: dP = dO V^T, the other half of it -> shared memory;
+//   (barrier) both: dS = P (dP - di) scale over P, each half on the rows of
+//     its patch whose other factor the other half stored;
+//   (barrier) half h: dQ_h += dS[:, 32 h .. 32 h + 31] K[32 h .. 32 h + 31, :].
+// dQ is thus split by keys, not by rows: each half sums the whole block of dQ
+// over its 32 keys of every tile, with an 8 x 8 patch (rows ty + RS i,
+// columns 4 tx + 4 TX e), where a split by rows would leave each thread an
+// 8 x 4 patch that reads 0.375 values a multiply-add. The two halves' sums
+// are added once at the end, half 0's first: every sum runs in a fixed
+// order, no atomics. Three barriers a tile. Per tile and multiprocessor at
+// width 64: 3 products of 128 x 64 x 64 (6,144 warp `FFMA` each of 8
+// warps), and 1,024 warp `LDS.128` per product (4 cycles each): the `FFMA`
+// and shared-memory reads take 12,288 cycles each. Width up to 64: 128 rows,
+// a score patch of 8 rows x 8 keys (212 KB of shared memory); up to 128: 64
+// rows, 4 x 8, so that Q and dO resident fit beside two stages (216 KB),
+// and there dP does not fit beside P: half 1 computes all of dS.
+// ---------------------------------------------------------------------------
+
+template <int NCHUNK>
+struct Dq32 {
+  static constexpr int kQI = 8 / NCHUNK;                // score rows a thread
+  static constexpr int kRows = 16 * kQI;                // query rows a block
+  static constexpr int kKeys = 64;                      // keys a tile
+  static constexpr int kDPitch = 64 * NCHUNK + 4;       // % 32 == 4
+  static constexpr int kPPitch = kKeys + 8;             // % 32 == 8
+  static constexpr int kTX = 8 * NCHUNK;                // dQ patch: threads across the width,
+  static constexpr int kRS = 128 / kTX;                 // and down the rows
+  // dS split over both halves where dP fits in shared memory beside P.
+  static constexpr bool kSplitDs = NCHUNK == 1;
+  static constexpr int kStageFloats = 2 * kKeys * kDPitch;
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (2 * (size_t)kRows * kDPitch + 2 * (size_t)kStageFloats +
+                       (kSplitDs ? 2 : 1) * (size_t)kRows * kPPitch + 2 * (size_t)kRows);
+  static_assert(8 * kRS == kRows, "the dQ patches cover the block's rows");
+};
+
+template <int NCHUNK>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_float32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ d_o,
+                            const float* __restrict__ lse, const float* __restrict__ di,
+                            float* __restrict__ dq, int heads, int n, int width, Strides sq,
+                            Strides sk, Strides sv, Strides sdo, Strides sdq, float scale) {
+  using G = Dq32<NCHUNK>;
+  constexpr int kRows = G::kRows, kQI = G::kQI, kKeys = G::kKeys;
+  constexpr int kDP = G::kDPitch, kPP = G::kPPitch;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kRows * kDP;
+  float* ring = dOs + kRows * kDP;            // 2 stages: K, V
+  float* Ps = ring + 2 * G::kStageFloats;     // P, then dS over it
+  float* dPs = Ps + kRows * kPP;              // dP (with kSplitDs)
+  float* row_s = dPs + (G::kSplitDs ? kRows * kPP : 0);   // -lse log2(e), then di
+  const uint32_t ring_addr = smem_addr(ring);
+
+  const int half = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int ty = t >> 3, tx = t & 7;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.x * kRows;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int n_tiles = (n + kKeys - 1) / kKeys;
+
+  // Key tile kt into stage kt % 2: K's chunks, then V's.
+  auto fetch = [&](int kt) {
+    if (kt < n_tiles) {
+      const uint32_t stage = ring_addr + (uint32_t)((kt & 1) * G::kStageFloats) * 4u;
+#pragma unroll
+      for (int c = 0; c < NCHUNK; ++c) {
+        copy_tile_f32<kKeys, kDP>(stage + (uint32_t)(c * 64) * 4u, kb, sk.n, kt * kKeys, n,
+                                  c * 64, width);
+        copy_tile_f32<kKeys, kDP>(stage + (uint32_t)(kKeys * kDP + c * 64) * 4u, vb, sv.n,
+                                  kt * kKeys, n, c * 64, width);
+      }
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int c = 0; c < NCHUNK; ++c) {
+    copy_tile_f32<kRows, kDP>(smem_addr(Qs + c * 64), q + b * sq.b + h * sq.h, sq.n, q0, n,
+                              c * 64, width);
+    copy_tile_f32<kRows, kDP>(smem_addr(dOs + c * 64), d_o + b * sdo.b + h * sdo.h, sdo.n, q0,
+                              n, c * 64, width);
+  }
+  fetch(0);   // Q and dO ride with tile 0
+  // Rows past n get lse = di = 0: with zero Q and dO rows their dS is 0.
+  if (threadIdx.x < 2 * kRows) {
+    const int row = q0 + threadIdx.x % kRows;
+    const bool first = threadIdx.x < kRows;
+    const float x = row < n ? (first ? lse : di)[(long long)bh * n + row] : 0.f;
+    row_s[threadIdx.x] = first ? -x * kLog2e : x;
+  }
+
+  float acc[8][8];   // dQ over this half's keys: rows ty' + RS i, columns 4 tx' + 4 TX e + c
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  const float* A = half == 0 ? Qs : dOs;      // the score product's resident operand
+  const float* row_v = row_s + half * kRows;  // half 0: -lse log2(e); half 1: di
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    // Tile kt has arrived, and every thread is done with tile kt - 1: its
+    // stage takes tile kt + 1, and P may be written again.
+    cp_async_wait<0>();
+    __syncthreads();
+    fetch(kt + 1);
+    const float* Ks = ring + (kt & 1) * G::kStageFloats;
+    const float* Vs = Ks + kKeys * kDP;
+    const int k0 = kt * kKeys;
+
+    // S (half 0) or dP (half 1): entry [i][j] is query row ty + 16 i, key
+    // k0 + tx + 8 j.
+    float sc[kQI][8];
+#pragma unroll
+    for (int i = 0; i < kQI; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
+    }
+    const float* B = half == 0 ? Ks : Vs;
+#pragma unroll
+    for (int c = 0; c < NCHUNK; ++c) {
+      product_nt<kQI, 8, kDP, kDP, 8, 16>(sc, A + c * 64, B + c * 64, t);
+    }
+    // dS = P (dP - di) scale. Keys past n have zero K and V rows but a P
+    // that need not be finite: their P is set to 0, so that their dS is 0.
+    // With kSplitDs each half finishes the rows i < kQI / 2 (half 0) or the
+    // others (half 1) of its patch from its own registers and the other
+    // half's values in shared memory; else half 1 finishes them all.
+    constexpr int kHalfRows = G::kSplitDs ? kQI / 2 : 0;
+    if (half == 0) {
+#pragma unroll
+      for (int i = 0; i < kQI; ++i) {
+        const float neg_lse2 = row_v[ty + 16 * i];   // base 2, one fma a score
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          sc[i][j] = k0 + tx + 8 * j < n ? fast_exp2(fmaf(sc[i][j], scale2, neg_lse2)) : 0.f;
+          if (i >= kHalfRows) Ps[(ty + 16 * i) * kPP + tx + 8 * j] = sc[i][j];
+        }
+      }
+    } else if (G::kSplitDs) {
+#pragma unroll
+      for (int i = 0; i < kHalfRows; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) dPs[(ty + 16 * i) * kPP + tx + 8 * j] = sc[i][j];
+      }
+    }
+    __syncthreads();
+    if (half == 0) {
+#pragma unroll
+      for (int i = 0; i < kHalfRows; ++i) {
+        const float row_di = row_s[kRows + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int at = (ty + 16 * i) * kPP + tx + 8 * j;
+          Ps[at] = sc[i][j] * (dPs[at] - row_di) * scale;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = kHalfRows; i < kQI; ++i) {
+        const float row_di = row_v[ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int at = (ty + 16 * i) * kPP + tx + 8 * j;
+          Ps[at] = Ps[at] * (sc[i][j] - row_di) * scale;
+        }
+      }
+    }
+    __syncthreads();
+
+    // dQ_half += dS[:, 32 half ..] K[32 half .., :]
+    product_nn<8, 8, 32, kPP, kDP, G::kTX, G::kRS>(acc, Ps + 32 * half, Ks + 32 * half * kDP, t);
+  }
+  cp_async_wait<0>();
+
+  // Half 1's sums reach half 0 through shared memory over Q, which no thread
+  // reads after the last tile's score product; half 0 adds them to its own
+  // and stores the block's dQ.
+  const int ry = t / G::kTX, rx = t % G::kTX;
+  if (half == 1) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        store4(Qs + (ry + G::kRS * i) * kDP + 4 * rx + 4 * G::kTX * e,
+               make_float4(acc[i][4 * e], acc[i][4 * e + 1], acc[i][4 * e + 2],
+                           acc[i][4 * e + 3]));
+      }
+    }
+  }
+  __syncthreads();
+  if (half == 0) {
+    float* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = q0 + ry + G::kRS * i;
+      if (r >= n) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 4 * rx + 4 * G::kTX * e;
+        if (col < width) {
+          const float4 o = load4(Qs + (ry + G::kRS * i) * kDP + col);
+          store4(dqb + (long long)r * sdq.n + col,
+                 make_float4(acc[i][4 * e] + o.x, acc[i][4 * e + 1] + o.y,
+                             acc[i][4 * e + 2] + o.z, acc[i][4 * e + 3] + o.w));
+        }
+      }
+    }
+  }
+}
+
+template <int NCHUNK>
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* d_o, const float* lse,
+                  const float* di, void* dq, int batch, int heads, int n, int width,
+                  const long long* st, float scale, cudaStream_t stream) {
+  using G = Dq32<NCHUNK>;
+  auto kernel = flash_bwd_dq_float32_kernel<NCHUNK>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + G::kRows - 1) / G::kRows, batch * heads);
+  kernel<<<grid, kThreads, G::kSmemBytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)d_o, lse, di, (float*)dq,
+      heads, n, width, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+      Strides{st[12], st[13], st[14]}, scale);
   return (int)cudaGetLastError();
 }
 
@@ -425,10 +687,13 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* d_o, c
 // `strides` holds (batch, head, row) strides in elements for them in that
 // order (15 values). lse, di: (batch, heads, n) float32, contiguous. Returns
 // cudaGetLastError() (0 on success), or -1 for a width or a grid the kernel
-// does not take. Dispatch by shape: bfloat16 with a width that is a multiple
-// of 8 up to 128 runs the tensor-core kernel (its tensors 16-byte aligned,
-// strides multiples of 8 elements); float32, and every other bfloat16 width,
-// the CUDA-core kernel.
+// does not take. Dispatch by shape (``kernel_route`` in
+// ops/kernels/flash_attention.py states the same rule): bfloat16 with a
+// width that is a multiple of 8 up to 128 runs the tensor-core kernel
+// ("tensor"; its tensors 16-byte aligned, strides multiples of 8 elements);
+// float32 up to width 128 the float32 kernel ("float32"; 16-byte aligned,
+// strides multiples of 4); float32 above 128 and every other bfloat16 width
+// the first CUDA-core kernel ("cuda_cores").
 extern "C" int rgie_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* d_o, const float* lse, const float* di,
                                            void* dq, int batch, int heads, int n, int width,
@@ -454,8 +719,12 @@ extern "C" int rgie_flash_attention_bwd_dq(const void* q, const void* k, const v
     if (chunks == 2) RGIE_DQ(__nv_bfloat16, 2);
     RGIE_DQ(__nv_bfloat16, 8);
   }
-  if (chunks == 1) RGIE_DQ(float, 1);
-  if (chunks == 2) RGIE_DQ(float, 2);
+  if (chunks == 1) {
+    return launch_dq_f32<1>(q, k, v, d_o, lse, di, dq, batch, heads, n, width, strides, scale, s);
+  }
+  if (chunks == 2) {
+    return launch_dq_f32<2>(q, k, v, d_o, lse, di, dq, batch, heads, n, width, strides, scale, s);
+  }
   RGIE_DQ(float, 8);
 #undef RGIE_DQ
 }

@@ -1,38 +1,26 @@
-"""Kernel K1 in Triton for Hopper: the fused pointwise filter prefix.
+"""Kernel K1 as it was first ported, in Triton: the fused pointwise filter
+prefix. The package runs the CUDA C++ kernel ``csrc/pointwise_chain.cu``;
+no module of the package imports this one. It is kept so that
+``python -m rgie_tpu_torch.cli.kernel_variants k1`` can time the old design
+(``k1_triton_old``) beside the new one on the same card, and it needs
+``triton``, which only the card's machine has.
 
-Replaces ``rgie_tpu/ops/pallas/pointwise_chain.py``: ``_prefix_kernel``,
-launched by ``fused_pointwise_chain``. It computes, per pixel and in order:
-exposure ``clip(x * 2^p)``; RGB -> HSV, S * max(p, 0), HSV -> RGB, clip;
-the shared 8-knot tone curve, clip; the per-channel 8-knot color curves,
-clip. Then contrast around the mean of the ITU-601 gray image,
-``clip((x - mean) * max(c, 0) + mean)``.
-
-What bounds it on this card: memory. Each pass reads and writes 12 bytes a
-pixel (about 50 MB per pass for a 4 x 1024^2 batch) and does some 100 FLOP
-a pixel, far below the ~20 FLOP/byte at which an H100 stops waiting on HBM.
-What the design does about it: two passes over device memory instead of the
-six of the separate ops.
+It computes, per pixel and in order: exposure ``clip(x * 2^p)``; RGB -> HSV,
+S * max(p, 0), HSV -> RGB, clip; the shared 8-knot tone curve, clip; the
+per-channel 8-knot color curves, clip. Then contrast around the mean of the
+ITU-601 gray image, ``clip((x - mean) * max(c, 0) + mean)``.
 
 - ``_pointwise_prefix``: grid (pixel blocks, B). Reads the interleaved NHWC
-  buffer directly as three masked stride-3 loads (the TPU version splits the
-  planes and stacks them again, which costs extra passes), applies the
-  prefix with the parameters loaded as scalars, writes the result the same
-  way, and writes one gray partial sum per program. Masked pixels add 0. No
-  atomics: the partials make the mean deterministic.
+  buffer as three masked stride-3 loads, applies the prefix with the
+  parameters loaded as scalars, writes the result the same way, and writes
+  one gray partial sum per program. Masked pixels add 0. No atomics.
 - ``_contrast``: grid (float blocks, B). Each program sums its image's
   partials in a fixed order into the mean and applies the contrast IN PLACE
-  on the prefix pass's output (each program reads and writes only its own
-  elements).
+  on the prefix pass's output.
 
 Division is Triton's float32 ``/`` (``div.full.f32``, within 2 ulp of the
-rounded quotient), not ``tl.div_rn``: HSV -> RGB is continuous across the
-hue-sector edges, so an ulp in the hue moves the output by about an ulp.
-``tl.exp2`` may be approximate in the same sense. The floor-mod of the hue
-(``jnp``'s ``%``) is written out, since Triton's float ``%`` follows C fmod.
-
-This module imports ``triton``; import it only when launching on a CUDA
-tensor (see ``pointwise_chain.py``). Making it fast is later work, e.g.
-coalesced 16-byte loads of the RGB triples.
+rounded quotient), not ``tl.div_rn``. The floor-mod of the hue (``jnp``'s
+``%``) is written out, since Triton's float ``%`` follows C fmod.
 """
 
 from __future__ import annotations
@@ -41,7 +29,33 @@ import torch
 import triton
 import triton.language as tl
 
-# The parameter layout of pointwise_chain.pack_kernel_params.
+#: Pixels per program of the prefix pass (the contrast pass takes 4x as many
+#: floats per program). The gray partial sums have one slot per prefix program.
+PIXELS_PER_PROGRAM = 1024
+
+
+def pack_kernel_params(params) -> torch.Tensor:
+    """(35,) f32: [exposure, saturation, tone 8, color 3x8 by channel,
+    contrast] — the TPU kernel's (1, 34) SMEM layout plus the contrast."""
+    return torch.cat([
+        params.exposure[None], params.saturation[None], params.tone[:, 0],
+        params.color.T.reshape(-1), params.contrast[None],
+    ]).to(torch.float32).contiguous()
+
+
+def old_pointwise_chain(image: torch.Tensor, params) -> torch.Tensor:
+    """The wrapper as it was: pack the parameters, allocate the output and
+    the partials, launch both passes (a checked contiguous float32 CUDA
+    tensor)."""
+    b, h, w, _ = image.shape
+    n_prog = -(-(h * w) // PIXELS_PER_PROGRAM)
+    packed = pack_kernel_params(params).to(image.device)
+    out = torch.empty_like(image)
+    partials = torch.empty((b, n_prog), dtype=torch.float32, device=image.device)
+    launch(image, out, packed, partials, PIXELS_PER_PROGRAM)
+    return out
+
+# The parameter layout of pack_kernel_params.
 _TONE = tl.constexpr(2)
 _COLOR = tl.constexpr(10)
 _CONTRAST = tl.constexpr(34)

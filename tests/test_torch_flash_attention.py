@@ -173,8 +173,8 @@ def test_kernel_route_table_over_widths(dtype):
     written out here as a table of ranges: what each C entry point runs."""
     for width in range(4, 513, 4):
         if dtype == torch.float32:
-            expect = {"fwd": "float32", "bwd_dkv": "float32" if width <= 128 else "cuda_cores",
-                      "bwd_dq": "cuda_cores"}
+            backward = "float32" if width <= 128 else "cuda_cores"
+            expect = {"fwd": "float32", "bwd_dkv": backward, "bwd_dq": backward}
         elif width <= 128 and width % 8 == 0:
             expect = dict.fromkeys(FA.KERNELS, "tensor")
         else:
@@ -218,10 +218,11 @@ def test_kernel_variants_still_apply_to_the_sources():
     text: every edit finds its lines exactly once in the source it names."""
     from rgie_tpu_torch.cli import kernel_variants as KV
     from rgie_tpu_torch.ops.kernels import build
+    from rgie_tpu_torch.ops.kernels import pointwise_chain as PC
 
     assert KV.VARIANTS
     for name, (source, edits) in KV.VARIANTS.items():
-        assert source in FA.KERNEL_SOURCES
+        assert source in FA.KERNEL_SOURCES + (PC.KERNEL_SOURCE,)
         texts = {}
         for edit in edits:      # (old, new) on the source, or (file, old, new)
             target, old, new = edit if len(edit) == 3 else (f"{source}.cu", *edit)
@@ -254,8 +255,8 @@ def test_kernels_match_plain_on_the_card(cuda_device, shape, dtype):
     192, 256 and 512 run the forward's wide tensor-core kernel and the
     backward on the CUDA cores; 36 and 136 run the first CUDA-core kernels
     throughout. float32 runs the float32 forward at every width, the float32
-    dK/dV up to 128 (zero-filled to 64 or 128 columns) and the first CUDA-core
-    kernels for the rest (``kernel_route``)."""
+    dK/dV and dQ up to 128 (zero-filled to 64 or 128 columns) and the first
+    CUDA-core kernels for the rest (``kernel_route``)."""
     b, h, n, d = shape
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(dtype).transpose(1, 2)
                    for a in _qkv(n + d, (b, n, h, d)))
@@ -309,8 +310,8 @@ def test_tensor_core_kernels_take_any_scale(cuda_device, scale, width):
 @pytest.mark.parametrize("scale", [-0.3, 0.0])
 def test_float32_kernels_take_any_scale(cuda_device, scale, width):
     """The float32 forward folds the scale into one multiply a score before
-    the row maximum, and dK/dV into the exponent and dS: a negative or zero
-    scale, on a ragged shape, against the plain version."""
+    the row maximum, and dK/dV and dQ into the exponent and dS: a negative or
+    zero scale, on a ragged shape, against the plain version."""
     scale = scale * (64.0 / width) ** 0.5
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).transpose(1, 2)
                    for a in _qkv(13, (1, 300, 2, width)))
