@@ -51,8 +51,9 @@ Phases (every check raises; nothing is caught):
    Adam moments float32.
 5. Card against CPU with the same full-width modules at 256 px (below the
    gate, so this holds everything but the kernels): one CFG +
-   classifier-guidance sampling step, and the loss and gradient of one
-   null-text inner step: rtol 1e-3.
+   classifier-guidance sampling step, the loss and gradient of one
+   null-text inner step, and the first two table-DPM inversion steps:
+   rtol 1e-3.
 6. Kernel route against plain route through the modules: ``CrossAttention``
    (self) and ``VaeAttention`` outputs and input gradients at the path's
    shapes against the same projections fed to the plain flash attention, in
@@ -64,12 +65,37 @@ Phases (every check raises; nothing is caught):
    latents from phase 4's is printed (recorded, not checked: null-text
    optimization on random weights amplifies rounding). The text tower, the
    null-text embeddings and their Adam moments stay float32 here too.
-8. Each path is driven with the launch counts set to 0 just before it and
+8. The SDXL edit in bfloat16, the type the CLI takes at ``--scale sdxl``:
+   ``build_models`` (SDXL base width: UNet ``sdxl``, VAE ``sdxl``, CLIP
+   ViT-L and OpenCLIP bigG text towers, ``MiduSDXL``; random weights from the
+   seed, made on the host and moved once, the time printed) and
+   ``adapt_image`` on the 1024 px image with ``--scheduler dpm`` (karras
+   sigmas + lu lambdas, forward and dedup'd inverse tables; the inverse
+   table's length printed), null-text optimization on, ``--cfg-scale 2.0
+   --clf-scale 0.2 --reference-value 0.1`` and ``SDXL_STEPS`` DPM steps (the
+   only cut: the CLI's default is 50). Checks: the K2 launch counts equal
+   the derivation (the VAE's mid block, 16384 positions, once per VAE pass,
+   on the forward's ``wide`` route; no backward launch; the UNet attends
+   over 4096 positions or fewer, below the gate); latents, null-text
+   embeddings and the image finite; the image (1, 1024, 1024, 3) in [0, 1];
+   every classifier-guidance gradient non-zero; the pooled embeddings, the
+   time ids, the null-text embeddings and their Adam moments float32;
+   seconds per phase and peak memory printed.
+9. Card against CPU for SDXL: float32 copies of that stack's UNet at 256 px
+   (1024 and 256 positions, below the gate) on the card and on the CPU: one
+   CFG + classifier-guidance sigma-space DPM step with the SDXL conditioning
+   (through a ``MiduSD`` head: ``MiduSDXL`` reads the 32 x 32 mid features
+   of 1024 px only), and the loss and gradient of one null-text inner step:
+   rtol 1e-3.
+10. The tiled VAE on the card against the same tiled calls on the CPU: the
+   SDXL VAE in float32 at 512 px, latent tiles of 32 (stride 24: 9 tiles),
+   decode and encode, atol 1e-4.
+11. Each path is driven with the launch counts set to 0 just before it and
    read just after. One JSON line ``{"kernels": [...]}`` (the K2 entries'
    times are bfloat16's, the type the full-width path runs by default, with
    float32's beside them under ``float32_*``; their launches the sum of
-   phase 4's and phase 7's edit), then the card, then the last line
-   ``{"ok": true, "device": {...}}``.
+   phase 4's, phase 7's and phase 8's edit), then the card, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.
@@ -93,6 +119,9 @@ DIFFUSION_SIZE, DIFFUSION_STEPS, FLOAT32_STEPS = 1024, 20, 6
 CFG_SCALE, CLF_SCALE, REFERENCE_VALUE = 2.0, 0.2, 0.1
 ATTENTION_SITES_UNET = 5   # down_0_attn_0/1, up_3_attn_0/1/2: 16384 positions, 5 heads of 64
 ATTENTION_SITES_UNET_DOWN = 2  # the sites a gradient through the mid features reaches
+# The SDXL edit's DPM steps (phase 8), and the sizes of its checks against
+# the CPU (phases 9 and 10).
+SDXL_STEPS, SDXL_CPU_SIZE, TILED_VAE_SIZE, VAE_TILE = 6, 256, 512, 32
 
 # K2 against its plain version. float32: both sum in float32 in different
 # orders; outputs and log-sum-exp are of order 1 or smaller, gradients are
@@ -456,6 +485,8 @@ def card_against_cpu_phase(stack, rng):
     import copy
     import dataclasses
 
+    from rgie_tpu_torch.diffusion import schedulers as SCH
+
     pipe = stack.pipe
     device = pipe.device
     pipe_cpu = dataclasses.replace(
@@ -485,18 +516,32 @@ def card_against_cpu_phase(stack, rng):
                                                 lat_prev.to(dev), CFG_SCALE)
         return loss.cpu(), grad.cpu()
 
+    def table_dpm_inversion_steps(p, dev):
+        # The first two steps of table-DPM inversion: first order, then second.
+        p = dataclasses.replace(p, scheduler_type="dpm")
+        ts, src_ts, i_vals = p.invert_tables()
+        state = SCH.dpm_init_state(lat.shape, device=dev)
+        _, _, pivots = p.invert_steps(lat.to(dev), state, embeds[:1].to(dev), None, ts[:2],
+                                      src_ts[:2], i_vals[:2])
+        return pivots.cpu()
+
     t0 = time.perf_counter()
     step_card, step_cpu = sample_step(pipe, device), sample_step(pipe_cpu, torch.device("cpu"))
     (loss_card, grad_card), (loss_cpu, grad_cpu) = (inner_step(pipe, device),
                                                     inner_step(pipe_cpu, torch.device("cpu")))
+    inv_card = table_dpm_inversion_steps(pipe, device)
+    inv_cpu = table_dpm_inversion_steps(pipe_cpu, torch.device("cpu"))
     e_step, e_grad = rel_err(step_card, step_cpu), rel_err(grad_card, grad_cpu)
+    e_inv = rel_err(inv_card, inv_cpu)
     print(f"card against CPU at 256 px, full width: guided sampling step {e_step:.3e}; null-text "
-          f"inner loss {float(loss_card):.7f} vs {float(loss_cpu):.7f}, gradient {e_grad:.3e} "
-          f"(of the largest entry; limit 1e-3) in {time.perf_counter() - t0:.1f} s")
+          f"inner loss {float(loss_card):.7f} vs {float(loss_cpu):.7f}, gradient {e_grad:.3e}; "
+          f"two table-DPM inversion steps {e_inv:.3e} (of the largest entry; limit 1e-3) in "
+          f"{time.perf_counter() - t0:.1f} s")
     check(e_step <= 1e-3, "guided sampling step disagrees with the CPU")
     check(abs(float(loss_card) - float(loss_cpu)) <= 1e-3 * abs(float(loss_cpu)),
           "null-text inner loss disagrees with the CPU")
     check(e_grad <= 1e-3, "null-text inner gradient disagrees with the CPU")
+    check(e_inv <= 1e-3, "table-DPM inversion steps disagree with the CPU")
 
 
 def module_route_phase(stack, rng):
@@ -554,6 +599,206 @@ def module_route_phase(stack, rng):
     compare("VaeAttention", vattn, vae_plain, (1, 512, 128, 128))
 
 
+def expected_sdxl_flash_launches():
+    """The K2 launches of one SDXL edit at 1024 px, with the derivation: the
+    VAE's mid block attends over 128 x 128 = 16384 positions with one head of
+    512 (the forward's wide route), once per VAE pass; the UNet's
+    self-attention sits at 64 x 64 and 32 x 32 (4096 and 1024 positions),
+    below the gate, and nothing differentiates the VAE."""
+    lines = [("score the original: VAE encode", 1), ("VAE encode", 1),
+             ("invert, null-text optimization, sample: UNet only", 0), ("VAE decode", 1),
+             ("rescore the edit: VAE encode", 1)]
+    for what, fwd in lines:
+        print(f"  launches expected, {what}: forward {fwd}, dK/dV 0, dQ 0")
+    return sum(f for _, f in lines)
+
+
+def sdxl_path_phase(device, image_path, card):
+    """Phase 8: the SDXL edit in the CLI's type at ``--scale sdxl``, through
+    ``build_models`` and ``adapt_image``. Returns (the stack, the launch
+    counts)."""
+    from rgie_tpu_torch.cli import adapt_images as cli
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+
+    args = cli.build_parser().parse_args([
+        "--scale", "sdxl", "--scheduler", "dpm", "--num-steps", str(SDXL_STEPS),
+        "--cfg-scale", str(CFG_SCALE), "--clf-scale", str(CLF_SCALE),
+        "--reference-value", str(REFERENCE_VALUE),
+        "--out-dir", os.path.join(os.path.dirname(image_path), "out_sdxl"),
+        "--device", "cuda", "--seed", "0"])
+    t0 = time.perf_counter()
+    stack = cli.build_models(args, torch.Generator().manual_seed(args.seed), device)
+    pipe = stack.pipe
+    dtype = pipe.unet.dtype
+    check(dtype == torch.bfloat16, f"the diffusion CLI's default type at --scale sdxl is {dtype}")
+    check(stack.input_size == DIFFUSION_SIZE and pipe.is_xl, "the SDXL stack's input size")
+    print(f"SDXL edit: models built in {dtype} (random weights, seed 0) in "
+          f"{time.perf_counter() - t0:.1f} s; sigma tables: {SDXL_STEPS} forward steps (karras "
+          f"timesteps {pipe.sigma_sched.timesteps.tolist()}), inverse table of "
+          f"{pipe.sigma_sched_inv.num_inference_steps} steps after the dedup (timesteps "
+          f"{pipe.sigma_sched_inv.timesteps.tolist()})")
+    adapter, manager = cli.make_adapter(stack, args.out_dir)
+    gcfg, acfg = cli.make_configs(args, is_xl=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    FA.LAUNCHES_FWD = FA.LAUNCHES_BWD_DKV = FA.LAUNCHES_BWD_DQ = 0
+    t0 = time.perf_counter()
+    outputs = cli.adapt_image(adapter, manager, image_path, gcfg, acfg, "a random image")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = (FA.LAUNCHES_FWD, FA.LAUNCHES_BWD_DKV, FA.LAUNCHES_BWD_DQ)
+    peak = torch.cuda.max_memory_allocated()
+
+    log = adapter.last_log
+    print(f"SDXL edit {dtype}: {SDXL_STEPS} DPM steps (the CLI's default is 50; nothing else is "
+          f"cut), null-text inner steps per outer step {log.nto_inner_steps}")
+    want = expected_sdxl_flash_launches()
+    print(f"  launches counted: forward {counts[0]}, dK/dV {counts[1]}, dQ {counts[2]}; expected "
+          f"{want}, 0, 0; forward route at the VAE's head: "
+          f"{FA.kernel_route('fwd', dtype, pipe.vae.cfg.block_out_channels[-1])}")
+    check(counts == (want, 0, 0), "SDXL K2 launch counts differ from the derivation")
+    check(FA.kernel_route("fwd", dtype, pipe.vae.cfg.block_out_channels[-1]) == "wide",
+          "the SDXL VAE's attention is not on the wide route")
+
+    (label, image), = outputs.items()
+    check(image.shape == (1, DIFFUSION_SIZE, DIFFUSION_SIZE, 3), "SDXL edited image shape")
+    check(bool(torch.isfinite(image).all()), "non-finite SDXL edited image")
+    check(float(image.min()) >= 0.0 and float(image.max()) <= 1.0,
+          "SDXL edited image outside [0, 1]")
+    for name in ("latents", "noisy", "nto_embeds", "out_latents"):
+        check(bool(torch.isfinite(log.tensors[name]).all()), f"non-finite SDXL {name}")
+    ucfg = pipe.unet.cfg
+    check(log.tensors["nto_embeds"].shape == (SDXL_STEPS, 77, ucfg.cross_attention_dim),
+          "SDXL null-text embeddings")
+    added = adapter.added_cond_fn("a random image", "")
+    check(added.text_embeds.shape == (2, ucfg.addition_pooled_dim) and
+          added.time_ids.shape == (2, 6), "SDXL added conditioning")
+    check(bool(torch.isfinite(added.text_embeds).all()), "non-finite pooled embeddings")
+    check(added.time_ids[0].tolist() == [DIFFUSION_SIZE, DIFFUSION_SIZE, 0, 0, DIFFUSION_SIZE,
+                                         DIFFUSION_SIZE], "SDXL time ids")
+    float32 = {"pooled embeddings": added.text_embeds, "time ids": added.time_ids,
+               **{name: log.tensors[name] for name in ("nto_embeds", "nto_adam_m", "nto_adam_v")}}
+    for name, tensor in float32.items():
+        check(tensor.dtype == torch.float32, f"SDXL {name} is {tensor.dtype}")
+    norms = [float(g) for g in log.clf_grad_norms]
+    check(len(norms) == SDXL_STEPS and all(np.isfinite(g) and g > 0 for g in norms),
+          f"SDXL classifier-guidance gradient norms {norms}")
+    check(os.path.exists(os.path.join(args.out_dir, label, os.path.basename(image_path))),
+          "saved SDXL image")
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in log.seconds.items())
+    print(f"SDXL edit {dtype}: {seconds:.3f} s for one 1024 px image at {SDXL_STEPS} steps "
+          f"(scoring the original included), peak memory {peak / 2**30:.2f} GiB; pooled "
+          f"embeddings, time ids, null-text embeddings and Adam moments float32; on {card}")
+    print(f"  seconds per phase: {phases}; classifier-guidance gradient norms "
+          + " ".join(f"{g:.3e}" for g in norms))
+    return stack, counts
+
+
+def sdxl_card_against_cpu_phase(stack, rng):
+    """Phase 9: float32 copies of the SDXL stack's UNet at 256 px on the card
+    and on the CPU."""
+    import copy
+    import dataclasses
+
+    from rgie_tpu_torch.diffusion import schedulers as SCH
+    from rgie_tpu_torch.diffusion.pipeline import SdxlCond
+    from rgie_tpu_torch.diffusion.text_encoder import get_add_time_ids
+    from rgie_tpu_torch.models.midu import create_midu
+
+    pipe = stack.pipe
+    device, cpu = pipe.device, torch.device("cpu")
+    unet_cpu = copy.deepcopy(pipe.unet).cpu().float()
+    ucfg = unet_cpu.cfg
+    midu = create_midu(torch.Generator().manual_seed(1), is_sdxl=False,
+                       in_channels=ucfg.block_out_channels[-1])
+    pipes = {device: dataclasses.replace(pipe, unet=copy.deepcopy(unet_cpu).to(device),
+                                         midu_model=copy.deepcopy(midu).to(device)),
+             cpu: dataclasses.replace(pipe, unet=unet_cpu, midu_model=midu)}
+
+    def arr(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    hw = SDXL_CPU_SIZE // pipe.vae.upscale_factor
+    lat, lat_prev = arr(1, hw, hw, 4), arr(1, hw, hw, 4)
+    width = ucfg.cross_attention_dim
+    embeds, nto = arr(2, 77, width), arr(pipe.sched.num_inference_steps, 77, width)
+    added = SdxlCond(arr(2, ucfg.addition_pooled_dim),
+                     get_add_time_ids(SDXL_CPU_SIZE, SDXL_CPU_SIZE).expand(2, 6))
+    ref = torch.tensor([[0.4, 0.6]])
+    ts, next_ts, i_vals = pipe.sample_tables(0)
+
+    def on(dev, c):
+        return SdxlCond(c.text_embeds.to(dev), c.time_ids.to(dev))
+
+    def sample_step(dev):
+        out, _ = pipes[dev].sample_steps(
+            lat.to(dev), SCH.dpm_init_state(lat.shape, device=dev), embeds.to(dev),
+            on(dev, added), ts[:1], next_ts[:1], i_vals[:1], guidance_scale=CFG_SCALE,
+            guidance_clf_scale=CLF_SCALE, uncond_embeds_per_step=nto.to(dev),
+            midu_reference_value=ref.to(dev))
+        return out.cpu()
+
+    def inner_step(dev):
+        p, t = pipes[dev], int(pipe.sched.timesteps[0])
+        row = lambda i: on(dev, SdxlCond(added.text_embeds[i:i + 1], added.time_ids[i:i + 1]))
+        with torch.no_grad():
+            eps_cond, _ = p._unet(lat.to(dev), t, embeds[1:].to(dev), row(1))
+        loss, grad = p.null_inner_loss_and_grad(embeds[:1].to(dev), lat.to(dev), t, eps_cond,
+                                                lat_prev.to(dev), CFG_SCALE, row(0))
+        return loss.cpu(), grad.cpu()
+
+    t0 = time.perf_counter()
+    step_card = sample_step(device)
+    loss_card, grad_card = inner_step(device)
+    t1 = time.perf_counter()
+    step_cpu = sample_step(cpu)
+    loss_cpu, grad_cpu = inner_step(cpu)
+    e_step, e_grad = rel_err(step_card, step_cpu), rel_err(grad_card, grad_cpu)
+    print(f"SDXL card against CPU at {SDXL_CPU_SIZE} px, full width, float32: guided sigma-DPM "
+          f"sampling step {e_step:.3e}; null-text inner loss {float(loss_card):.7f} vs "
+          f"{float(loss_cpu):.7f}, gradient {e_grad:.3e} (of the largest entry; limit 1e-3); "
+          f"card {t1 - t0:.1f} s, CPU {time.perf_counter() - t1:.1f} s")
+    check(e_step <= 1e-3, "SDXL guided sampling step disagrees with the CPU")
+    check(abs(float(loss_card) - float(loss_cpu)) <= 1e-3 * abs(float(loss_cpu)),
+          "SDXL null-text inner loss disagrees with the CPU")
+    check(e_grad <= 1e-3, "SDXL null-text inner gradient disagrees with the CPU")
+
+
+def tiled_vae_phase(stack, rng):
+    """Phase 10: the SDXL VAE in float32, tiled, on the card and on the CPU."""
+    import copy
+
+    from rgie_tpu_torch.diffusion import vae as V
+
+    device, cpu = stack.pipe.device, torch.device("cpu")
+    vae_cpu = copy.deepcopy(stack.pipe.vae).cpu().float()
+    vaes = {device: copy.deepcopy(vae_cpu).to(device), cpu: vae_cpu}
+    hw = TILED_VAE_SIZE // vae_cpu.upscale_factor
+    stride = (VAE_TILE * 3) // 4
+    lat = torch.from_numpy(rng.standard_normal((1, hw, hw, 4)).astype(np.float32))
+    img = torch.from_numpy(rng.uniform(-1, 1, (1, TILED_VAE_SIZE, TILED_VAE_SIZE, 3))
+                           .astype(np.float32))
+    results = {}
+    for dev, vae in vaes.items():
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            dec = V.decode_tiled(vae, lat.to(dev), tile=VAE_TILE, stride=stride).cpu()
+            enc = V.encode_tiled(vae, img.to(dev), tile=VAE_TILE, stride=stride).cpu()
+        results[dev] = (dec, enc, time.perf_counter() - t0)
+    (dec_card, enc_card, s_card), (dec_cpu, enc_cpu, s_cpu) = results[device], results[cpu]
+    e_dec = float((dec_card - dec_cpu).abs().max())
+    e_enc = float((enc_card - enc_cpu).abs().max())
+    n_tiles = len(V.tile_positions(hw, VAE_TILE, stride)) ** 2
+    print(f"tiled SDXL VAE at {TILED_VAE_SIZE} px (latent tiles of {VAE_TILE}, stride {stride}: "
+          f"{n_tiles} tiles), float32, card against CPU: decode max abs err {e_dec:.3e}, encode "
+          f"{e_enc:.3e} (limit 1e-4); card {s_card:.1f} s, CPU {s_cpu:.1f} s")
+    check(n_tiles > 1, "the tiled VAE ran one tile")
+    check(dec_card.shape == (1, TILED_VAE_SIZE, TILED_VAE_SIZE, 3) and
+          enc_card.shape == (1, hw, hw, 4), "tiled VAE shapes")
+    check(e_dec <= 1e-4, "tiled VAE decode disagrees with the CPU")
+    check(e_enc <= 1e-4, "tiled VAE encode disagrees with the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -567,6 +812,7 @@ def main():
     from rgie_tpu_torch.ops.kernels import pointwise_chain as PC
 
     # ---- 1. device
+    t_start = time.perf_counter()
     device = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -708,8 +954,19 @@ def main():
           f"(float32 latents: largest entry {float(latents_f32.abs().max()):.4f}, mean magnitude "
           f"{float(latents_f32.abs().mean()):.4f}); recorded, not checked")
     counts_bf16, _ = diffusion_path_phase(edit_args, stack, image_path, DIFFUSION_STEPS, card)
-    for entry, a, b in zip(k2_entries, counts_f32, counts_bf16):
-        entry["launches"] = a + b
+    del stack
+    torch.cuda.empty_cache()
+
+    # ---- 8-10. the SDXL edit, its UNet against the CPU, the tiled VAE
+    stack, counts_sdxl = sdxl_path_phase(device, image_path, card)
+    sdxl_card_against_cpu_phase(stack, rng)
+    tiled_vae_phase(stack, rng)
+    del stack
+    torch.cuda.empty_cache()
+    for entry, a, b, c in zip(k2_entries, counts_f32, counts_bf16, counts_sdxl):
+        entry["launches"] = a + b + c
+    k2_entries[0]["sdxl_launches"] = counts_sdxl[0]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
         "name": "pointwise_chain", "route": "cuda",

@@ -4,29 +4,37 @@ of ``scripts/adapt_images.py`` (reference entry point ``src/adapt_images.py``).
     python -m rgie_tpu_torch.cli.adapt_images --data-dir DIR --scale sd \\
         --input-size 1024 --device cuda
 
+    python -m rgie_tpu_torch.cli.adapt_images --data-dir DIR --scale sdxl \
+        --scheduler dpm --device cuda
+
 Iterates a captions dataset; per image: score the original through the midu
-regressor, VAE-encode, DDIM-invert with the empty prompt, optionally run the
-null-text optimization, resample with classifier-free plus midu classifier
-guidance, VAE-decode, save and rescore.
+regressor, VAE-encode, invert with the empty prompt (DDIM, or DPM-Solver++
+2M), optionally run the null-text optimization, resample with
+classifier-free plus midu classifier guidance, VAE-decode, save and rescore.
 
-Without downloaded SD weights every model is a random-weight stand-in drawn
-from ``--seed`` (``--scale tiny`` runs the whole flow on a small UNet/VAE;
-``--scale sd`` is SD-2.1 width). Runs on one device; ``--device cuda`` (the
-default) fails when CUDA is missing, and the CPU is used only for ``--device
-cpu``. At ``--scale sd --input-size 1024`` the UNet's top-level
-self-attention and the VAE's mid-block attention run through the
-flash-attention CUDA kernels.
+Without ``--diffusers-dir`` (a local diffusers snapshot) every model is a
+random-weight stand-in drawn from ``--seed``: ``--scale tiny`` runs the whole
+flow on a small UNet/VAE, ``--scale sd`` is SD-2.1 width (512 px by
+default), ``--scale sdxl`` SDXL base width (1024 px, two text towers, pooled
+embeddings and micro-conditioning time ids). With ``--scheduler dpm`` the
+SDXL edit steps over karras sigmas (lu lambdas asked for too, as in the
+reference, where karras takes precedence), forward and inverse; the SD edit
+over the alphas table. Runs on one device; ``--device cuda`` (the default)
+fails when CUDA is missing, and the CPU is used only for ``--device cpu``.
+At 1024 px the VAE's mid-block attention (16384 positions) runs through the
+flash-attention CUDA kernels, and at ``--scale sd`` the UNet's top-level
+self-attention too; SDXL's UNet attends over 4096 positions or fewer, below
+the kernels' gate.
 
-Options of later slices are accepted and raise, naming the slice: ``--scale
-sdxl``, ``--scheduler dpm``, ``--vae-tile``, ``--diffusers-dir`` (slice C2,
-the SDXL edit end to end), ``--batch > 1`` and ``--segment`` (slice C2's
-batched and segmented edits).
+``--batch > 1`` and ``--segment`` (the batched and segmented edits, slice
+C2c) are accepted and raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -34,11 +42,13 @@ import torch
 from rgie_tpu_torch.adapt.adapter import ImageAdapter, ImageScorer, OutputImageManager
 from rgie_tpu_torch.config import AdaptConfig, GuidanceConfig
 from rgie_tpu_torch.diffusion import schedulers as SCH
-from rgie_tpu_torch.diffusion.pipeline import InversionResamplingPipeline
-from rgie_tpu_torch.diffusion.text_encoder import (PromptEncoder, TextTowerConfig,
-                                                   create_sd_prompt_encoder)
-from rgie_tpu_torch.diffusion.unet import UNetConfig, create_unet
-from rgie_tpu_torch.diffusion.vae import VaeConfig, create_vae
+from rgie_tpu_torch.diffusion.pipeline import InversionResamplingPipeline, SdxlCond
+from rgie_tpu_torch.diffusion.text_encoder import (PromptEncoder, TextEncoderHidden,
+                                                   TextTowerConfig, create_sd_prompt_encoder,
+                                                   create_sdxl_prompt_encoder,
+                                                   tower_config_from_params)
+from rgie_tpu_torch.diffusion.unet import UNet2DCondition, UNetConfig, create_unet
+from rgie_tpu_torch.diffusion.vae import AutoencoderKL, VaeConfig, create_vae
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,10 +57,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--out-dir", default=None)
     ap.add_argument("--midu-ckpt", default=None, help="torch midu classifier checkpoint")
-    ap.add_argument("--diffusers-dir", default=None, help="(slice C2) local diffusers snapshot")
+    ap.add_argument("--diffusers-dir", default=None,
+                    help="local diffusers snapshot dir (unet/ vae/ text_encoder/ ...): loads its "
+                         "weights instead of the random stand-ins")
     ap.add_argument("--scale", choices=("tiny", "sd", "sdxl"), default="tiny")
     ap.add_argument("--num-steps", type=int, default=50)
-    ap.add_argument("--scheduler", choices=("ddim", "dpm"), default="ddim")
+    ap.add_argument("--dpm-diffusers-exact", action="store_true",
+                    help="build the DPM karras/lu sigma tables with the diffusers-exact "
+                         "conventions (inference-range endpoints, appended training sigma_max "
+                         "on the inverse table, first-order first inverse step)")
+    ap.add_argument("--scheduler", choices=("ddim", "dpm"), default="ddim",
+                    help="ddim (reference SD default) or dpm; with --scale sdxl, dpm uses karras "
+                         "sigmas + lu lambdas like the reference (...XLPipeline.py:29-32)")
     ap.add_argument("--end-iteration", type=int, default=None)
     ap.add_argument("--cfg-scale", type=float, default=2.0)
     ap.add_argument("--clf-scale", type=float, default=0.2)
@@ -58,11 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="alpha offset on the original VA (GuidanceConfig.reference_value)")
     ap.add_argument("--no-nto", action="store_true")
     ap.add_argument("--use-caption", action="store_true", default=True)
-    ap.add_argument("--batch", type=int, default=1, help="(slice C2) > 1: the batched edit")
+    ap.add_argument("--batch", type=int, default=1, help="(slice C2c) > 1: the batched edit")
     ap.add_argument("--remat", action="store_true",
                     help="recompute UNet activations on the differentiated paths (less "
                          "memory at the cost of one extra forward)")
-    ap.add_argument("--segment", type=int, default=0, metavar="K", help="(slice C2)")
+    ap.add_argument("--segment", type=int, default=0, metavar="K", help="(slice C2c)")
     ap.add_argument("--remat-mode", choices=("call", "block"), default="block",
                     help="with --remat: 'block' recomputes each UNet res/attn block (peak = "
                          "boundaries + one block); 'call' wraps the whole UNet call")
@@ -70,24 +88,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--input-size", type=int, default=None)
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
                     help="the UNet's and the VAE's type (default: float32 for tiny, bfloat16 "
-                         "for sd); the text tower and the embeddings stay float32")
+                         "for sd and sdxl); the text towers and the embeddings stay float32")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--vae-tile", type=int, default=None, help="(slice C2) tiled VAE")
+    ap.add_argument("--vae-tile", type=int, default=None,
+                    help="latent tile size for tiled VAE encode/decode (diffusers enable_tiling "
+                         "analog; e.g. 64 = 512 px tiles, 25%% overlap)")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return ap
 
 
 def check_supported(args) -> None:
-    """Raise for the options that later slices bring."""
+    """Raise for the options that a later slice brings."""
     later = [
-        (args.scale == "sdxl", "--scale sdxl", "slice C2 (the SDXL edit end to end, with the "
-                                               "second text tower)"),
-        (args.scheduler == "dpm", "--scheduler dpm", "slice C2 (the table and sigma-space "
-                                                     "DPM-Solver++ schedulers)"),
-        (args.batch > 1, "--batch > 1", "slice C2 (diffusion/batched.py)"),
-        (args.segment > 0, "--segment", "slice C2 (diffusion/segmented.py)"),
-        (args.vae_tile is not None, "--vae-tile", "slice C2 (the tiled VAE transport)"),
-        (args.diffusers_dir is not None, "--diffusers-dir", "slice C2 (diffusion/load.py)"),
+        (args.batch > 1, "--batch > 1", "slice C2c (diffusion/batched.py)"),
+        (args.segment > 0, "--segment", "slice C2c (diffusion/segmented.py)"),
     ]
     for asked, flag, slice_name in later:
         if asked:
@@ -100,70 +114,164 @@ class EditStack(NamedTuple):
     input_size: int
 
 
+def _prompt_encoder(ckpt, is_xl: bool, generator: torch.Generator, tower_cfg: dict,
+                    diffusers_dir: Optional[str]) -> PromptEncoder:
+    """The checkpoint's text tower(s) where it has them, else random stand-ins.
+    Each tower's activation comes from its config.json."""
+    if ckpt is None or ckpt.text_state is None:
+        if is_xl:
+            return create_sdxl_prompt_encoder(generator)
+        return create_sd_prompt_encoder(generator, tower_cfg)
+    from rgie_tpu_torch.diffusion.load import module_from_state_dict
+
+    def tower(state, skip_last, act):
+        cfg = tower_config_from_params(state, skip_last=skip_last, act=act)
+        return module_from_state_dict(lambda: TextEncoderHidden(**cfg), state)
+
+    if not is_xl:
+        return PromptEncoder(tower1=tower(ckpt.text_state, 0, ckpt.text_act))
+    # Both towers must be present: an SDXL dir with only text_encoder/ would
+    # otherwise fail later with an unhelpful error.
+    if ckpt.text2_state is None:
+        raise ValueError(f"SDXL checkpoint {diffusers_dir} has text_encoder/ but no "
+                         "text_encoder_2/ weights: both towers are required for SDXL prompt "
+                         "encoding")
+    return PromptEncoder(tower1=tower(ckpt.text_state, 1, ckpt.text_act),
+                         tower2=tower(ckpt.text2_state, 1, ckpt.text2_act))
+
+
 def build_models(args, generator: torch.Generator, device: torch.device) -> EditStack:
-    """The frozen UNet, VAE, midu classifier and text tower on ``device``:
-    random stand-ins drawn from ``generator`` (the midu from ``--midu-ckpt``
-    where that file exists), with the DDIM schedule of ``--num-steps``."""
+    """The frozen UNet, VAE, midu classifier and text tower(s) on ``device``:
+    the ``--diffusers-dir`` snapshot's weights, or random stand-ins drawn from
+    ``generator`` (the midu from ``--midu-ckpt`` where that file exists),
+    with the schedules of ``--num-steps`` and ``--scheduler``."""
     from rgie_tpu_torch.models.midu import create_midu
 
     check_supported(args)
     if args.scale == "tiny":
         input_size = args.input_size or 64
         unet_cfg, vae_cfg = UNetConfig.tiny(), VaeConfig.tiny()
-        tower_cfg = TextTowerConfig.tiny()
-    else:
+        tower_cfg, is_xl = TextTowerConfig.tiny(), False
+    elif args.scale == "sd":
         input_size = args.input_size or 512
         unet_cfg, vae_cfg = UNetConfig.sd21(), VaeConfig.sd()
-        tower_cfg = TextTowerConfig.open_clip_vit_h()
+        tower_cfg, is_xl = TextTowerConfig.open_clip_vit_h(), False
+    else:
+        input_size = args.input_size or 1024
+        unet_cfg, vae_cfg = UNetConfig.sdxl(), VaeConfig.sdxl()
+        tower_cfg, is_xl = TextTowerConfig.clip_vit_l(), True
     dtype_name = args.dtype or ("float32" if args.scale == "tiny" else "bfloat16")
     dtype = torch.bfloat16 if dtype_name == "bfloat16" else torch.float32
 
-    unet = create_unet(generator, unet_cfg, dtype=dtype,
-                       block_remat=args.remat and args.remat_mode == "block")
-    vae = create_vae(generator, vae_cfg, dtype=dtype)
-    midu = create_midu(generator, is_sdxl=False, in_channels=unet_cfg.block_out_channels[-1])
+    ckpt = None
+    if args.diffusers_dir:
+        from rgie_tpu_torch.diffusion.load import load_diffusers_checkpoint
+
+        ckpt = load_diffusers_checkpoint(
+            args.diffusers_dir, dtype=torch.float32 if args.scale == "tiny" else dtype)
+        unet_cfg, vae_cfg, is_xl = ckpt.unet_cfg, ckpt.vae_cfg, ckpt.is_xl
+        if args.input_size is None:
+            input_size = 1024 if is_xl else 512
+        print(f"loaded diffusers checkpoint from {args.diffusers_dir} "
+              f"(xl={is_xl}, bpe={'real' if ckpt.merges_path else 'fallback'})")
+
+    latent_hw = input_size // 2 ** (len(vae_cfg.block_out_channels) - 1)
+    mid_hw = latent_hw // 2 ** (len(unet_cfg.block_out_channels) - 1)
+    if is_xl and mid_hw != 32:
+        raise ValueError(f"MiduSDXL reads 32 x 32 mid-block features; {input_size} px gives "
+                         f"{mid_hw} x {mid_hw}")
+
+    # The frozen models are made (or read) on the host, cast to the working
+    # type, then moved to the device once: SDXL's UNet alone has 2.6 B
+    # parameters.
+    t0 = time.perf_counter()
+    block_remat = args.remat and args.remat_mode == "block"
+    if ckpt is not None and ckpt.unet_state is not None:
+        from rgie_tpu_torch.diffusion.load import module_from_state_dict
+
+        unet = module_from_state_dict(
+            lambda: UNet2DCondition(unet_cfg, block_remat=block_remat), ckpt.unet_state)
+        vae = module_from_state_dict(lambda: AutoencoderKL(vae_cfg), ckpt.vae_state)
+    else:
+        unet = create_unet(generator, unet_cfg, dtype=dtype, block_remat=block_remat)
+        vae = create_vae(generator, vae_cfg, dtype=dtype)
+    midu = create_midu(generator, is_sdxl=is_xl, in_channels=unet_cfg.block_out_channels[-1])
     if args.midu_ckpt and os.path.exists(args.midu_ckpt):
         from rgie_tpu_torch.utils.checkpoint import load_torch_state_dict
 
         midu.load_state_dict(load_torch_state_dict(args.midu_ckpt), strict=True)
         print(f"loaded midu classifier from {args.midu_ckpt}")
-    # The text tower and every embedding stay float32 whatever --dtype says,
+    # The text towers and every embedding stay float32 whatever --dtype says,
     # as in the JAX package (a bfloat16 UNet with float32 embedding masters):
-    # null-text optimization's Adam steps of lr <= 1e-2 are at or below one
+    # null-text optimization's Adam steps (lr 1e-2 for SD) are at or below one
     # bfloat16 step of an entry of size 1.
-    prompt_encoder = create_sd_prompt_encoder(generator, tower_cfg)
+    prompt_encoder = _prompt_encoder(ckpt, is_xl, generator, tower_cfg, args.diffusers_dir)
+    host_s = time.perf_counter() - t0
 
+    sched = SCH.make_schedule(args.num_steps)
+    sigma_kw = {}
+    if args.scheduler == "dpm" and is_xl:
+        # The reference's SDXL DPM config: karras sigmas (+ lu lambdas, which
+        # karras precedence masks) and the dedup'd inverse table.
+        sigma_kw = {name: SCH.make_dpm_sigma_schedule(
+            args.num_steps, use_karras_sigmas=True, use_lu_lambdas=True, inverse=inverse,
+            diffusers_exact=args.dpm_diffusers_exact)
+            for name, inverse in (("sigma_sched", False), ("sigma_sched_inv", True))}
+    t0 = time.perf_counter()
     pipe = InversionResamplingPipeline(
-        unet=unet.to(device), vae=vae.to(device), sched=SCH.make_schedule(args.num_steps),
-        midu_model=midu.to(device), is_xl=False,
-        remat_unet=args.remat and args.remat_mode == "call", scheduler_type=args.scheduler)
-    prompt_encoder.tower1.to(device)
+        unet=unet.to(device), vae=vae.to(device), sched=sched, midu_model=midu.to(device),
+        is_xl=is_xl, remat_unet=args.remat and args.remat_mode == "call",
+        scheduler_type=args.scheduler, vae_tile=args.vae_tile, **sigma_kw)
+    for tower in (prompt_encoder.tower1, prompt_encoder.tower2):
+        if tower is not None:
+            tower.to(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if args.scale != "tiny":
+        print(f"models ({sum(p.numel() for p in unet.parameters()) / 1e9:.2f} B UNet "
+              f"parameters, {dtype_name}) made on the host in {host_s:.1f} s, moved to {device} "
+              f"in {time.perf_counter() - t0:.1f} s")
     return EditStack(pipe=pipe, prompt_encoder=prompt_encoder, input_size=input_size)
 
 
 def make_adapter(stack: EditStack, out_dir: str):
     """The scorer, the output manager and the per-image adapter over a stack."""
-    enc = stack.prompt_encoder
+    enc, size = stack.prompt_encoder, stack.input_size
+    added_cond_fn = None
+    if stack.pipe.is_xl:
+        def embeds_fn(prompt, negative):
+            e, _, _ = enc.encode_sdxl(prompt, negative, image_size=size)
+            return e[1:2]    # the cond row
 
-    def embeds_fn(prompt, negative):
-        return enc.encode_sd(prompt, negative, do_cfg=False)
+        def cfg_embeds_fn(prompt, negative):
+            e, _, _ = enc.encode_sdxl(prompt, negative, image_size=size)
+            return e
 
-    def cfg_embeds_fn(prompt, negative):
-        return enc.encode_sd(prompt, negative, do_cfg=True)
+        def added_cond_fn(prompt, negative):
+            _, pooled, time_ids = enc.encode_sdxl(prompt, negative, image_size=size)
+            return SdxlCond(text_embeds=pooled, time_ids=time_ids)
+    else:
+        def embeds_fn(prompt, negative):
+            return enc.encode_sd(prompt, negative, do_cfg=False)
 
-    scorer = ImageScorer(pipe=stack.pipe, embeds_fn=embeds_fn)
+        def cfg_embeds_fn(prompt, negative):
+            return enc.encode_sd(prompt, negative, do_cfg=True)
+
+    scorer = ImageScorer(pipe=stack.pipe, embeds_fn=embeds_fn, added_cond_fn=added_cond_fn)
     manager = OutputImageManager(scorer=scorer, output_path=out_dir)
     adapter = ImageAdapter(pipe=stack.pipe, scorer=scorer, embeds_fn=embeds_fn,
-                           cfg_embeds_fn=cfg_embeds_fn, input_size=stack.input_size)
+                           cfg_embeds_fn=cfg_embeds_fn, added_cond_fn=added_cond_fn,
+                           input_size=size)
     return adapter, manager
 
 
-def make_configs(args):
+def make_configs(args, is_xl: bool = False):
     gcfg = GuidanceConfig(clf_scale=args.clf_scale, cfg_scale=args.cfg_scale,
                           reference_value=args.reference_value, is_nto=not args.no_nto,
                           use_caption=args.use_caption)
     acfg = AdaptConfig(num_inversion_steps=args.num_steps, num_inference_steps=args.num_steps,
-                       end_iteration=args.end_iteration, is_xl=False)
+                       end_iteration=args.end_iteration, is_xl=is_xl,
+                       scheduler_type=args.scheduler)
     return gcfg, acfg
 
 
@@ -186,7 +294,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     stack = build_models(args, torch.Generator().manual_seed(args.seed), device)
     adapter, manager = make_adapter(stack, args.out_dir or str(OUT_DIR / "adapt_images"))
-    gcfg, acfg = make_configs(args)
+    gcfg, acfg = make_configs(args, stack.pipe.is_xl)
 
     dataset = CaptionFeedDataset(args.data_dir or str(DATA_DIR))
     n = len(dataset) if args.limit is None else min(args.limit, len(dataset))

@@ -5,13 +5,18 @@ kernel.
 
     python -m rgie_tpu_torch.cli.profile_adapt_images --scale sd --input-size 1024 \\
         --dtype float32
+    python -m rgie_tpu_torch.cli.profile_adapt_images --scale sdxl --scheduler dpm
 
 Takes the flags of ``rgie_tpu_torch.cli.adapt_images``; weights are the random
 stand-ins drawn from ``--seed`` and the latents are random, so the shapes and
-the kernels are the edit's while the values are not. Needs CUDA. Prints, per
-phase, the wall time of one synchronized call after a warm-up, the profiled
-device time, the share of it spent in the flash-attention kernels, and the
-kernels with the largest shares.
+the kernels are the edit's while the values are not (at ``--scale sdxl`` the
+pooled text embeddings are random too, beside the time ids of the input
+size). Each step is the scheduler's (``--scheduler``: DDIM, or DPM-Solver++
+over the alphas table for SD and over the karras sigma tables for SDXL).
+Needs CUDA. Prints, per phase, the wall time of one synchronized call after
+a warm-up, the profiled device time, the share of it spent in the
+flash-attention kernels, the peak memory, and the kernels with the largest
+shares.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ import torch
 
 from rgie_tpu_torch.cli import adapt_images as cli
 from rgie_tpu_torch.device import resolve_device
+from rgie_tpu_torch.diffusion import schedulers as SCH
+from rgie_tpu_torch.diffusion.pipeline import SdxlCond
+from rgie_tpu_torch.diffusion.text_encoder import get_add_time_ids
 
 TOP_KERNELS = 12
 
@@ -73,19 +81,30 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     lat, lat_prev = draw(1, hw, hw, 4), draw(1, hw, hw, 4)
     embeds = draw(2, 77, width)
+    added = added_row = None
+    if pipe.is_xl:
+        time_ids = get_add_time_ids(stack.input_size, stack.input_size).to(device)
+        added = SdxlCond(draw(2, pipe.unet.cfg.addition_pooled_dim), time_ids.expand(2, 6))
+        added_row = SdxlCond(added.text_embeds[:1], added.time_ids[:1])
     ts, next_ts, i_vals = pipe.sample_tables(0)
+    inv_ts, src_ts, inv_i = pipe.invert_tables()
     t = int(ts[0])
+
+    def state():
+        return SCH.dpm_init_state(lat.shape, lat.dtype, device)
+
     with torch.no_grad():
-        eps_cond, _ = pipe._unet(lat, t, embeds[1:], None)
-    print(f"{args.scale} at {stack.input_size} px, latents {hw}x{hw}, {args.dtype or 'default'}")
+        eps_cond, _ = pipe._unet(lat, t, embeds[1:], added_row)
+    print(f"{args.scale} at {stack.input_size} px, latents {hw}x{hw}, {args.dtype or 'default'}, "
+          f"scheduler {args.scheduler}")
 
     profile_phase("inversion step (UNet forward, batch 1)", lambda: pipe.invert_steps(
-        lat, None, embeds[:1], None, ts[:1], ts[:1], i_vals[:1]))
+        lat, state(), embeds[:1], added_row, inv_ts[1:2], src_ts[1:2], inv_i[1:2]))
     profile_phase("null-text inner step (UNet forward + backward to the embeddings)",
                   lambda: pipe.null_inner_loss_and_grad(embeds[:1], lat, t, eps_cond, lat_prev,
-                                                        args.cfg_scale))
+                                                        args.cfg_scale, added_row))
     profile_phase("guided sampling step (CFG pair forward + guidance forward and backward)",
-                  lambda: pipe.sample_steps(lat, None, embeds, None, ts[:1], next_ts[:1],
+                  lambda: pipe.sample_steps(lat, state(), embeds, added, ts[:1], next_ts[:1],
                                             i_vals[:1], guidance_scale=args.cfg_scale,
                                             guidance_clf_scale=args.clf_scale))
     image = torch.rand((1, stack.input_size, stack.input_size, 3), generator=gen).to(device)

@@ -1,26 +1,28 @@
-"""Inversion-resampling diffusion pipeline: DDIM-invert a real image, run
+"""Inversion-resampling diffusion pipeline: invert a real image, run
 null-text optimization, resample with classifier-free + classifier guidance.
-Port of the DDIM branch of ``rgie_tpu/diffusion/pipeline.py`` (reference
-pipeline family: ``src/pipelines/InversionResamplingDiffusionPipeline.py``,
-``InversionResamplingStableDiffusionPipeline.py``).
+Port of ``rgie_tpu/diffusion/pipeline.py`` (reference pipeline family:
+``src/pipelines/InversionResamplingDiffusionPipeline.py``,
+``InversionResamplingStableDiffusionPipeline.py``, ``...XLPipeline.py``).
 
-  * inversion (reverse_sample:26-49): a loop over ascending DDIM steps; the
-    pivot latents are returned per call;
+  * inversion (reverse_sample:26-49): a loop over ascending DDIM or
+    DPM-Solver++ steps (over the alphas table, or over the karras/lu sigma
+    table, whose dedup can make it shorter); the pivot latents are returned
+    per call;
   * sampling (sample:51-145): the CFG pair batched through the UNet, a DDIM
-    step, then classifier guidance as the gradient of the midu score with
-    respect to the POST-step latents (the reference's autograd.grad at
-    :126-142), gradient-normalized;
+    or DPM-Solver++ step, then classifier guidance as the gradient of the midu
+    score with respect to the POST-step latents (the reference's
+    autograd.grad at :126-142), gradient-normalized;
   * null-text optimization (_null_optimization:124-219): an outer loop over
     timesteps, an inner loop with the reference's early stop
     ``loss < eps + i*2e-5`` and per-step Adam on the uncond embeddings
-    (lr = base_lr * (1 - i/100)).
+    (lr = base_lr * (1 - i/100)); it keeps the DDIM step and timesteps
+    whatever the scheduler, as the reference does;
+  * the VAE transport, whole or tiled (``vae_tile``).
 
 The JAX package scans these loops into XLA programs and passes the weights as
 a ``PipelineParams`` pytree; here the loops are Python, the pipeline holds
 the modules, and everything runs under ``torch.no_grad()`` except the two
-places where a gradient is taken. The DPM-Solver++ branches (``scheduler_type
-"dpm"``, the sigma tables) come with slice C2 and raise until then; so does
-the tiled VAE transport, which the CLI refuses.
+places where a gradient is taken.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from rgie_tpu_torch.diffusion import schedulers as SCH
 from rgie_tpu_torch.diffusion.schedulers import DiffusionSchedule
 from rgie_tpu_torch.diffusion.unet import UNet2DCondition
-from rgie_tpu_torch.diffusion.vae import AutoencoderKL
+from rgie_tpu_torch.diffusion.vae import AutoencoderKL, decode_tiled, encode_tiled
 from rgie_tpu_torch.models.midu import ValenceArousalMidu
 
 
@@ -76,12 +78,23 @@ class InversionResamplingPipeline:
     # differentiated paths (the null-text inner loss, classifier guidance).
     # The per-block variant is the UNet's own ``block_remat``.
     remat_unet: bool = False
+    # Tiled VAE transport (vae.decode_tiled / encode_tiled): the latent tile
+    # size, or None for the whole-image VAE. The stride defaults to 3/4 of
+    # the tile (25% crossfaded overlap), diffusers' overlap_factor.
+    vae_tile: Optional[int] = None
+    vae_tile_stride: Optional[int] = None
+    # Sigma-space DPM tables (karras sigmas / lu lambdas, the reference's SDXL
+    # DPM configuration, ...XLPipeline.py:29-32). When set (and
+    # scheduler_type == "dpm"), sampling steps over ``sigma_sched`` and
+    # inversion over ``sigma_sched_inv``, whose rounded-timestep dedup can
+    # make it SHORTER than num_inference_steps. Build both with
+    # schedulers.make_dpm_sigma_schedule.
+    sigma_sched: Optional[SCH.DpmSigmaSchedule] = None
+    sigma_sched_inv: Optional[SCH.DpmSigmaSchedule] = None
 
     def __post_init__(self):
-        if self.scheduler_type != "ddim":
-            raise NotImplementedError(
-                f"scheduler_type {self.scheduler_type!r}: the DPM-Solver++ schedulers (table "
-                "and sigma-space) are not ported yet; they come with slice C2")
+        if self.scheduler_type not in ("ddim", "dpm"):
+            raise ValueError(f"unknown scheduler_type {self.scheduler_type!r}: 'ddim' or 'dpm'")
 
     @property
     def device(self) -> torch.device:
@@ -107,48 +120,89 @@ class InversionResamplingPipeline:
     def encode_image(self, image: torch.Tensor, generator: Optional[torch.Generator] = None
                      ) -> torch.Tensor:
         """(B, H, W, 3) in [0,1] -> scaled latents, float32 (the scheduler
-        math runs in float32 whatever the VAE's working type)."""
-        return self.vae.encode(image * 2.0 - 1.0, generator).float()
+        math runs in float32 whatever the VAE's working type). The reference
+        preprocesses to [-1,1] via the diffusers image processor
+        (...StableDiffusionPipeline.py:147-150)."""
+        x = image * 2.0 - 1.0
+        if self.vae_tile is not None:
+            lat = encode_tiled(self.vae, x, generator, tile=self.vae_tile,
+                               stride=self._vae_stride())
+        else:
+            lat = self.vae.encode(x, generator)
+        return lat.float()
+
+    def _vae_stride(self) -> int:
+        return self.vae_tile_stride or max((self.vae_tile * 3) // 4, 1)
 
     @torch.no_grad()
     def decode_latents(self, latents: torch.Tensor) -> torch.Tensor:
         """latents -> images in [0,1] (diff_utils.decode_latents:109-119)."""
-        return torch.clamp(self.vae.decode(latents) * 0.5 + 0.5, 0.0, 1.0)
+        if self.vae_tile is not None:
+            img = decode_tiled(self.vae, latents, tile=self.vae_tile, stride=self._vae_stride())
+        else:
+            img = self.vae.decode(latents)
+        return torch.clamp(img * 0.5 + 0.5, 0.0, 1.0)
 
     # -- inversion ----------------------------------------------------------
+
+    def _use_sigma(self, table: Optional[SCH.DpmSigmaSchedule]) -> bool:
+        return self.scheduler_type == "dpm" and table is not None
 
     def invert_tables(self, end_iteration: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Inversion step tables ``(ts, src_ts, i_vals)``, aligned per step.
-        ``src_ts`` is only meaningful for table-DPM and ``i_vals`` for
-        sigma-DPM; DDIM reads ``ts``."""
+        ``src_ts`` is only meaningful for table-DPM, ``i_vals`` (global step
+        indices) for sigma-DPM; unused slots are zeros so the shapes are
+        uniform."""
+        if self._use_sigma(self.sigma_sched_inv):
+            ts = self.sigma_sched_inv.timesteps
+            if end_iteration is not None:
+                ts = ts[:end_iteration]
+            return ts, torch.zeros_like(ts), torch.arange(ts.shape[0])
         ts = SCH.inverse_timesteps(self.sched)
         if end_iteration is not None:
             ts = ts[:end_iteration]
-        return ts, torch.zeros_like(ts), torch.arange(ts.shape[0])
+        if self.scheduler_type == "dpm":
+            dt = self.sched.num_train_timesteps // self.sched.num_inference_steps
+            src_ts = torch.cat([ts[:1] - dt, ts[:-1]])
+        else:
+            src_ts = torch.zeros_like(ts)
+        return ts, src_ts, torch.arange(ts.shape[0])
 
     @torch.no_grad()
-    def invert_steps(self, latents: torch.Tensor, state, embeds: torch.Tensor,
+    def invert_steps(self, latents: torch.Tensor, state: SCH.DpmState, embeds: torch.Tensor,
                      added: Optional[SdxlCond], ts: torch.Tensor, src_ts: torch.Tensor,
-                     i_vals: torch.Tensor):
+                     i_vals: torch.Tensor) -> Tuple[torch.Tensor, SCH.DpmState, torch.Tensor]:
         """Inversion over an explicit step window (a slice of
-        ``invert_tables``). ``state`` is the DPM carry, unused by DDIM and
-        passed through. Returns (final_latents, state, pivots (K, ...))."""
+        ``invert_tables``). Carries the DPM state across windows (DDIM passes
+        it through). Returns (final_latents, state, pivots (K, ...))."""
+        use_sigma = self._use_sigma(self.sigma_sched_inv)
         pivots = []
-        for t in ts.tolist():
-            eps, _ = self._unet(latents, t, embeds, added)
-            latents = SCH.ddim_inverse_step(self.sched, eps, t, latents)
+        for t, t_src, i in zip(ts.tolist(), src_ts.tolist(), i_vals.tolist()):
+            if use_sigma:
+                # Sigma-space (karras/lu) inversion: step i moves sigmas[i]
+                # -> sigmas[i+1]; the UNet conditions on the table's rounded
+                # timesteps (the diffusers inverse-scheduler loop convention).
+                eps, _ = self._unet(latents, t, embeds, added)
+                latents, state = SCH.dpm_sigma_step(self.sigma_sched_inv, eps, i, latents, state)
+            elif self.scheduler_type == "dpm":
+                eps, _ = self._unet(latents, t_src, embeds, added)
+                latents, state = SCH.dpm_step(self.sched, eps, t_src, t, latents, state)
+            else:
+                eps, _ = self._unet(latents, t, embeds, added)
+                latents = SCH.ddim_inverse_step(self.sched, eps, t, latents)
             pivots.append(latents)
         return latents, state, torch.stack(pivots)
 
     def reverse_sample(self, latents: torch.Tensor, embeds: torch.Tensor,
                        added: Optional[SdxlCond] = None, end_iteration: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """DDIM inversion (reference: reverse_sample,
+        """Inversion (reference: reverse_sample,
         ...StableDiffusionPipeline.py:26-49). Returns (noisy_latents,
-        pivot_latents (S+1, ...)); pivots[0] is the clean latent."""
+        pivot_latents (K+1, ...)); pivots[0] is the clean latent."""
         ts, src_ts, i_vals = self.invert_tables(end_iteration)
-        final, _, pivots = self.invert_steps(latents, None, embeds, added, ts, src_ts, i_vals)
+        state = SCH.dpm_init_state(latents.shape, latents.dtype, latents.device)
+        final, _, pivots = self.invert_steps(latents, state, embeds, added, ts, src_ts, i_vals)
         return final, torch.cat([latents[None], pivots], dim=0)
 
     # -- sampling with CFG + classifier guidance -----------------------------
@@ -167,7 +221,8 @@ class InversionResamplingPipeline:
         embeddings (:108-109)."""
         ts, next_ts, steps = self.sample_tables(start_iteration)
         lat, _ = self.sample_steps(
-            latents, None, prompt_embeds, added, ts, next_ts, steps,
+            latents, SCH.dpm_init_state(latents.shape, latents.dtype, latents.device),
+            prompt_embeds, added, ts, next_ts, steps,
             guidance_scale=guidance_scale, guidance_clf_scale=guidance_clf_scale,
             guidance_rescale=guidance_rescale, uncond_embeds_per_step=uncond_embeds_per_step,
             midu_is_minimized=midu_is_minimized, midu_reference_value=midu_reference_value,
@@ -179,14 +234,18 @@ class InversionResamplingPipeline:
         """Sampling step tables ``(ts, next_ts, i_vals)`` from
         ``start_iteration`` to the end; slice all three together to feed
         ``sample_steps`` window by window."""
-        ts = self.sched.timesteps[start_iteration:]
+        if self._use_sigma(self.sigma_sched):
+            ts = self.sigma_sched.timesteps[start_iteration:]
+        else:
+            ts = self.sched.timesteps[start_iteration:]
         dt = self.sched.num_train_timesteps // self.sched.num_inference_steps
         next_ts = torch.cat([ts[1:], ts[-1:] - dt])
         steps = torch.arange(start_iteration, start_iteration + ts.shape[0])
         return ts, next_ts, steps
 
     @torch.no_grad()
-    def sample_steps(self, latents: torch.Tensor, dpm_state, prompt_embeds: torch.Tensor,
+    def sample_steps(self, latents: torch.Tensor, dpm_state: SCH.DpmState,
+                     prompt_embeds: torch.Tensor,
                      added: Optional[SdxlCond], ts: torch.Tensor, next_ts: torch.Tensor,
                      i_vals: torch.Tensor, guidance_scale: float = 7.5,
                      guidance_clf_scale: float = 0.0, guidance_rescale: float = 0.0,
@@ -196,7 +255,9 @@ class InversionResamplingPipeline:
                      log: Optional[RunLog] = None):
         """Guided sampling over an explicit step window (a slice of
         ``sample_tables``); ``i_vals`` are GLOBAL step indices (they index
-        ``uncond_embeds_per_step``). Returns (latents, dpm_state)."""
+        ``uncond_embeds_per_step`` and the sigma tables). Returns (latents,
+        dpm_state) so a caller can chain windows."""
+        use_sigma = self._use_sigma(self.sigma_sched)
         do_cfg = guidance_scale > 1.0
         do_clf = self.midu_model is not None and guidance_clf_scale > 0.0
         lat = latents
@@ -212,7 +273,7 @@ class InversionResamplingPipeline:
             clf = ValenceArousalMidu(model=self.midu_model, is_minimized=midu_is_minimized,
                                      reference_value=midu_reference_value)
 
-        for t, i in zip(ts.tolist(), i_vals.tolist()):
+        for t, t_next, i in zip(ts.tolist(), next_ts.tolist(), i_vals.tolist()):
             if do_cfg:
                 embeds = prompt_embeds
                 if uncond_embeds_per_step is not None:
@@ -228,7 +289,12 @@ class InversionResamplingPipeline:
                     added_cond = SdxlCond(added.text_embeds[-1:], added.time_ids[-1:])
                 eps, _ = self._unet(lat, t, prompt_embeds, added_cond)
 
-            lat = SCH.ddim_step(self.sched, eps, t, lat)
+            if use_sigma:
+                lat, dpm_state = SCH.dpm_sigma_step(self.sigma_sched, eps, i, lat, dpm_state)
+            elif self.scheduler_type == "dpm":
+                lat, dpm_state = SCH.dpm_step(self.sched, eps, t, t_next, lat, dpm_state)
+            else:
+                lat = SCH.ddim_step(self.sched, eps, t, lat)
 
             if do_clf:
                 # Classifier guidance on the POST-step latents, gradient

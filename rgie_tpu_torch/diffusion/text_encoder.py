@@ -1,10 +1,12 @@
-"""Text encoder and prompt embedding for the SD family. Port of the SD part of
-``rgie_tpu/diffusion/text_encoder.py`` (``encode_sdxl`` and the second tower
-come with slice C2).
+"""Text encoders and prompt embedding for the SD family. Port of
+``rgie_tpu/diffusion/text_encoder.py``.
 
 The reference builds prompt embeddings through diffusers' encode_prompt
 (``src/pipelines/diff_utils.py:252-346``): SD2.1 uses the OpenCLIP ViT-H text
-tower's penultimate hidden states (1024 wide). The tower here carries the
+tower's penultimate hidden states (1024 wide); SDXL concatenates CLIP ViT-L
+(768) and OpenCLIP bigG (1280) hidden states (2048 wide) and adds bigG's
+pooled, projected embedding and the micro-conditioning time ids. A tower here
+carries the
 parameter names of ``transformers.CLIPTextModel`` (``text_model.embeddings.*``,
 ``text_model.encoder.layers.N.*``, ``text_model.final_layer_norm``,
 ``text_projection``), so a real checkpoint's state dict loads directly.
@@ -217,12 +219,16 @@ def _load_bpe():
 
 @dataclasses.dataclass(frozen=True)
 class PromptEncoder:
-    """Bound text tower producing CFG-ready embeddings.
+    """Bound text tower(s) producing CFG-ready embeddings.
 
     SD: embeds (2, 77, width) [uncond; cond]
-    (reference: get_prompt_embeddings_sd, diff_utils.py:252-346)."""
+    SDXL: embeds (2, 77, 768+1280) + pooled text_embeds (2, 1280) + time_ids
+    (2, 6). (reference: get_prompt_embeddings_sd / _sdxl, diff_utils.py:252-346)
+
+    The towers and every embedding are float32."""
 
     tower1: TextEncoderHidden
+    tower2: Optional[TextEncoderHidden] = None   # SDXL's second tower
 
     @property
     def device(self) -> torch.device:
@@ -235,23 +241,71 @@ class PromptEncoder:
         hidden, _ = self.tower1(tokens.to(self.device))
         return hidden
 
-    def encode_sdxl(self, prompt: str, negative_prompt: str = "", image_size: int = 1024):
-        raise NotImplementedError(
-            "SDXL prompt encoding (the second text tower, pooled embeddings and time ids) is "
-            "not ported yet: it comes with slice C2 (the SDXL edit end to end)")
+    @torch.no_grad()
+    def encode_sdxl(self, prompt: str, negative_prompt: str = "", image_size: int = 1024
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(embeds (2, 77, w1 + w2), pooled text embeds (2, proj_dim), time ids
+        (2, 6)), rows [negative; prompt], on the towers' device."""
+        tokens = tokenize([negative_prompt, prompt]).to(self.device)
+        h1, _ = self.tower1(tokens)
+        h2, pooled2 = self.tower2(tokens)
+        embeds = torch.cat([h1, h2], dim=-1)
+        time_ids = get_add_time_ids(image_size, image_size).to(self.device).expand(2, 6)
+        return embeds, pooled2, time_ids
+
+
+def get_add_time_ids(height: int, width: int, crop_top: int = 0, crop_left: int = 0,
+                     target_height: Optional[int] = None,
+                     target_width: Optional[int] = None) -> torch.Tensor:
+    """SDXL micro-conditioning (reference: get_add_time_ids, diff_utils.py:349-367):
+    (orig_h, orig_w, crop_top, crop_left, target_h, target_w), (1, 6) float32."""
+    return torch.tensor([[height, width, crop_top, crop_left, target_height or height,
+                          target_width or width]], dtype=torch.float32)
+
+
+def tower_config_from_params(state_dict: dict, skip_last: int = 1, act: str = "gelu") -> dict:
+    """TextEncoderHidden shape kwargs from a tower's HF-named state dict
+    (``text_model.*``, ``text_projection.weight``). ``act`` and
+    ``skip_last`` depend on the tower's role (see TextTowerConfig) and must be
+    given; heads are width // 64, as in every SD-family tower."""
+    width = state_dict["text_model.embeddings.position_embedding.weight"].shape[1]
+    prefix = "text_model.encoder.layers."
+    layers = {k[len(prefix):].split(".")[0] for k in state_dict if k.startswith(prefix)}
+    cfg = dict(width=width, layers=len(layers), heads=max(width // 64, 1),
+               vocab_size=state_dict["text_model.embeddings.token_embedding.weight"].shape[0],
+               skip_last=skip_last, act=act)
+    if "text_projection.weight" in state_dict:
+        cfg["proj_dim"] = state_dict["text_projection.weight"].shape[0]
+    return cfg
+
+
+def _random_tower(generator: torch.Generator, cfg: dict, dtype: torch.dtype, **kw
+                  ) -> TextEncoderHidden:
+    """A frozen random-weight tower on the CPU (positions N(0, 0.01) and the
+    projection N(0, 1/width), as in the JAX package)."""
+    from rgie_tpu_torch.models.init import freeze_, random_init_
+
+    tower = TextEncoderHidden(**kw, **cfg)
+    random_init_(tower, generator, stds={
+        "text_model.embeddings.position_embedding.weight": 0.01,
+        "text_projection.weight": cfg["width"] ** -0.5})
+    return freeze_(tower.to(dtype))
 
 
 def create_sd_prompt_encoder(generator: torch.Generator, tower_cfg: Optional[dict] = None,
                              vocab_size: int = 49408, dtype: torch.dtype = torch.float32
                              ) -> PromptEncoder:
-    """A frozen random-weight SD prompt encoder on the CPU (positions N(0,
-    0.01) and the projection N(0, 1/width) as in the JAX package)."""
-    from rgie_tpu_torch.models.init import freeze_, random_init_
-
+    """A frozen random-weight SD prompt encoder on the CPU."""
     cfg = tower_cfg or TextTowerConfig.open_clip_vit_h()
-    tower = TextEncoderHidden(vocab_size=vocab_size, **cfg)
-    width = cfg["width"]
-    random_init_(tower, generator, stds={
-        "text_model.embeddings.position_embedding.weight": 0.01,
-        "text_projection.weight": width ** -0.5})
-    return PromptEncoder(tower1=freeze_(tower.to(dtype)))
+    return PromptEncoder(tower1=_random_tower(generator, cfg, dtype, vocab_size=vocab_size))
+
+
+def create_sdxl_prompt_encoder(generator: torch.Generator, cfg1: Optional[dict] = None,
+                               cfg2: Optional[dict] = None, dtype: torch.dtype = torch.float32
+                               ) -> PromptEncoder:
+    """A frozen random-weight SDXL prompt encoder on the CPU: CLIP ViT-L
+    (quick_gelu) and OpenCLIP bigG (gelu, projected pool), both read at their
+    penultimate layer."""
+    return PromptEncoder(
+        tower1=_random_tower(generator, cfg1 or TextTowerConfig.clip_vit_l(), dtype),
+        tower2=_random_tower(generator, cfg2 or TextTowerConfig.open_clip_big_g(), dtype))

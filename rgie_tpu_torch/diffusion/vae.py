@@ -1,5 +1,5 @@
-"""VAE (AutoencoderKL) for the SD family. Port of ``rgie_tpu/diffusion/vae.py``
-without the tiled transport (queued with slice C2).
+"""VAE (AutoencoderKL) for the SD family, and its tiled transport. Port of
+``rgie_tpu/diffusion/vae.py``.
 
 Parameter names follow diffusers' ``AutoencoderKL`` (``encoder.*``,
 ``decoder.*``, ``quant_conv``, ``post_quant_conv``; the mid attention as
@@ -15,7 +15,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
+
+import numpy as np
 
 import torch
 import torch.nn as nn
@@ -249,3 +251,97 @@ def create_vae(generator: torch.Generator, cfg: VaeConfig = VaeConfig.tiny(),
     from rgie_tpu_torch.models.init import freeze_, random_init_
 
     return freeze_(random_init_(AutoencoderKL(cfg), generator).to(dtype))
+
+
+# ---------------------------------------------------------------------------
+# Tiled VAE transport (the diffusers ``enable_tiling`` analog, diffusers
+# autoencoder_kl.py tiled_decode/tiled_encode): the VAE runs over fixed-size
+# tiles one after another and tile borders are crossfaded. The tile grid is
+# fixed by the shapes (the last tile is clamped to the canvas, never smaller),
+# and blending is a symmetric linear crossfade through a per-tile weight mask
+# accumulated into the canvas; pixels on a tile's cut edge (polluted by the
+# convolutions' zero padding) get weight exactly 0. As in diffusers this is
+# an approximation at seams: each tile runs its own mid-block attention. The
+# defaults are diffusers' 512 px tiles with 25% overlap (tile_latent_min_size
+# 64, overlap_factor 0.25).
+# ---------------------------------------------------------------------------
+
+
+def tile_positions(extent: int, tile: int, stride: int) -> List[int]:
+    """Tile start offsets covering [0, extent); the last tile is clamped."""
+    if extent <= tile:
+        return [0]
+    ps = list(range(0, extent - tile + 1, stride))
+    if ps[-1] + tile < extent:
+        ps.append(extent - tile)
+    return ps
+
+
+def _edge_ramp(length: int, edge: int, ramp_lo: bool, ramp_hi: bool) -> np.ndarray:
+    w = np.ones((length,), np.float32)
+    e = min(edge, length)
+    if e == 0:
+        return w
+    # Linear 0 -> 1 over the overlap; the cut-edge pixel gets weight exactly
+    # 0 (the neighbouring tile covers it at full weight). e == 1 uses 0.5 so
+    # that the two single-pixel ramps never sum to zero.
+    ramp = (np.arange(e, dtype=np.float32) / e) if e > 1 else np.array([0.5], np.float32)
+    if ramp_lo:
+        w[:e] = np.minimum(w[:e], ramp)
+    if ramp_hi:
+        w[-e:] = np.minimum(w[-e:], ramp[::-1])
+    return w
+
+
+def _stitch(tiles: Iterable[torch.Tensor], positions, tile: int, edge: int, extent_hw,
+            factor: int, out_channels: int) -> torch.Tensor:
+    """Accumulate the tiles, in the order of ``positions``, into a weighted
+    canvas. ``tiles`` may be a generator: each tile is added as it comes, so
+    one tile and the canvas are held at a time."""
+    h, w = extent_hw
+    acc = wacc = None
+    for (y, x), t in zip(positions, tiles):
+        if acc is None:
+            acc = torch.zeros((t.shape[0], h * factor, w * factor, out_channels), dtype=t.dtype,
+                              device=t.device)
+            wacc = torch.zeros((1, h * factor, w * factor, 1), dtype=t.dtype, device=t.device)
+        wy = _edge_ramp(tile * factor, edge * factor, y > 0, y + tile < h)
+        wx = _edge_ramp(tile * factor, edge * factor, x > 0, x + tile < w)
+        mask = torch.from_numpy((wy[:, None] * wx[None, :])[None, :, :, None]).to(
+            device=t.device, dtype=t.dtype)
+        rows = slice(y * factor, (y + tile) * factor)
+        cols = slice(x * factor, (x + tile) * factor)
+        acc[:, rows, cols] += t * mask
+        wacc[:, rows, cols] += mask
+    return acc / wacc
+
+
+def decode_tiled(model: AutoencoderKL, latents: torch.Tensor, tile: int = 64,
+                 stride: int = 48) -> torch.Tensor:
+    """Scaled latents -> [-1, 1] images, decoding (tile, tile) latent tiles
+    one after another. Equal to ``decode`` when the latent fits one tile."""
+    _, h, w, _ = latents.shape
+    if h <= tile and w <= tile:
+        return model.decode(latents)
+    pos = [(y, x) for y in tile_positions(h, tile, stride) for x in tile_positions(w, tile, stride)]
+    tiles = (model.decode(latents[:, y:y + tile, x:x + tile, :]) for y, x in pos)
+    return _stitch(tiles, pos, tile, tile - stride, (h, w), model.upscale_factor,
+                   model.cfg.in_channels)
+
+
+def encode_tiled(model: AutoencoderKL, images: torch.Tensor,
+                 generator: Optional[torch.Generator] = None, tile: int = 64,
+                 stride: int = 48) -> torch.Tensor:
+    """[-1, 1] images -> scaled latents over (tile*f, tile*f) image tiles;
+    ``tile`` and ``stride`` are in LATENT units (as in ``decode_tiled``). With
+    a generator, each tile samples its posterior with its own draw (the next
+    one from the generator, in tile order)."""
+    f = model.upscale_factor
+    _, hi, wi, _ = images.shape
+    h, w = hi // f, wi // f
+    if h <= tile and w <= tile:
+        return model.encode(images, generator)
+    pos = [(y, x) for y in tile_positions(h, tile, stride) for x in tile_positions(w, tile, stride)]
+    tiles = (model.encode(images[:, y * f:(y + tile) * f, x * f:(x + tile) * f, :], generator)
+             for y, x in pos)
+    return _stitch(tiles, pos, tile, tile - stride, (h, w), 1, model.cfg.latent_channels)

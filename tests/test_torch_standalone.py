@@ -195,3 +195,32 @@ def test_load_torch_state_dict(tmp_path):
         assert set(got) == set(expect) == {"a.weight", "b"}
         for k in got:
             np.testing.assert_array_equal(got[k].numpy(), expect[k])
+
+
+def test_diffusion_utils_equal_the_jax_package(tmp_path, capsys):
+    import json
+
+    from PIL import Image
+
+    from rgie_tpu.diffusion import utils as U_j
+    from rgie_tpu_torch.diffusion import utils as U
+
+    imgs = [Image.new("RGB", (8, 6), (i * 40, 10, 0)) for i in range(6)]
+    np.testing.assert_array_equal(np.asarray(U.image_grid(imgs, 2, 3)),
+                                  np.asarray(U_j.image_grid(imgs, 2, 3)))
+    t = np.linspace(0, 5, 30)
+    y = U.exponential_func(t, 2.0, 0.5, 1.0) + np.random.default_rng(0).normal(0, 0.01, 30)
+    (params, fitted), (params_j, fitted_j) = (
+        mod.fit_time_distance(t, y, do_plot=False) for mod in (U, U_j))
+    assert params == params_j and params is not None
+    np.testing.assert_array_equal(fitted, fitted_j)
+    assert capsys.readouterr().out.count("Exp Function") == 2
+    feed = [{"relative_path": "a/b/c.jpg"}, {"relative_path": "d.jpg"}]
+    (tmp_path / "feed.json").write_text(json.dumps(feed))
+    (tmp_path / "fixed.json").write_text(json.dumps({"data": [{"image_url": "x.jpg"}]}))
+    path = str(tmp_path / "feed.json")
+    assert U.get_feed_exp_image_data(path, "/base", "/out") == U_j.get_feed_exp_image_data(
+        path, "/base", "/out")
+    path = str(tmp_path / "fixed.json")
+    assert U.get_fixed_exp_image_data(path, "/b") == U_j.get_fixed_exp_image_data(path, "/b")
+    assert len(U.create_timestamp_folder_name()) == len(U_j.create_timestamp_folder_name()) == 19
