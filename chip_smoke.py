@@ -90,12 +90,40 @@ Phases (every check raises; nothing is caught):
 10. The tiled VAE on the card against the same tiled calls on the CPU: the
    SDXL VAE in float32 at 512 px, latent tiles of 32 (stride 24: 9 tiles),
    decode and encode, atol 1e-4.
-11. Each path is driven with the launch counts set to 0 just before it and
+11. ``cli/bench.py``'s workload (the root bench.py's): its ``build`` and
+   ``run`` at 256 px, batch ``BENCH_BATCH``, ``NUM_STEPS`` steps, the frozen
+   ResNet-50 and CLIP in bfloat16, after a 2-step warm-up edit; img/s, ms
+   per step, MFU, seconds and peak memory printed. Checks: no K1/K2
+   launch, finite losses, best <= first loss per image, outputs in [0, 1].
+   Then the bfloat16 objective of image 0 against the same objective with
+   the float32 models (the weights before rounding), both on the card, term
+   by term (the VA and the CLIP term, each with weight 1, and the objective
+   at the bench's weights): at a vector within ``AWAY`` of the identity, the
+   values and gradients (limits ``BF16_*``; each term at least four times
+   its limit, so that one left out fails), and at the edit's last vector the
+   objective, relative to its size.
+12. The MUNIT style-code edit at full width in bfloat16:
+   ``cli/bench_gan.py``'s ``build`` and ``run`` (``MunitGenConfig()``,
+   1024 px, batch ``GAN_BATCH``, ``NUM_STEPS`` Adam steps, random weights
+   from the seed, images in [-1, 1]). Checks: no K1/K2 launch; losses and
+   edited images finite; images in [-1, 1]; best <= first loss per image;
+   the style codes float32. ms per step, MFU, seconds and peak memory
+   printed.
+13. The GAN edit on the card against the CPU in float32: the full-width
+   generator, the regressor on [-1, 1] images and the shipped-width patch
+   discriminator (``weight_dis`` 0.1) at ``GAN_CPU_SIZE`` px: the content
+   and style codes, a decode and one objective value, relative to their
+   largest entry: ``GAN_CPU_RTOL``; the objective's style gradient, a sum of
+   terms that cancel (its distance from the float64 gradient is printed),
+   to ``GAN_GRAD32_RTOL``; then all of it again with the same modules in
+   float64, to ``GAN_CPU_RTOL``. No K1/K2 launch.
+14. Each path is driven with the launch counts set to 0 just before it and
    read just after. One JSON line ``{"kernels": [...]}`` (the K2 entries'
    times are bfloat16's, the type the full-width path runs by default, with
    float32's beside them under ``float32_*``; their launches the sum of
-   phase 4's, phase 7's and phase 8's edit), then the card, then the last
-   line ``{"ok": true, "device": {...}}``.
+   phase 4's, phase 7's and phase 8's edit; the GAN path and the bench
+   launch none), then the card, then the last line ``{"ok": true,
+   "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.
@@ -122,6 +150,22 @@ ATTENTION_SITES_UNET_DOWN = 2  # the sites a gradient through the mid features r
 # The SDXL edit's DPM steps (phase 8), and the sizes of its checks against
 # the CPU (phases 9 and 10).
 SDXL_STEPS, SDXL_CPU_SIZE, TILED_VAE_SIZE, VAE_TILE = 6, 256, 512, 32
+# The bench's workload (phase 11), the GAN edit (phase 12) and its check
+# against the CPU (phase 13). The GAN card-against-CPU tolerance is relative
+# to the largest entry.
+BENCH_BATCH, GAN_BATCH, GAN_SIZE, GAN_CPU_SIZE = 12, 4, 1024, 128
+GAN_CPU_RTOL, GAN_GRAD32_RTOL = 1e-3, 5e-2
+# Phase 11 holds the bfloat16 parametric objective of image 0 to the float32
+# one term by term, at a vector within AWAY of the identity: the VA term
+# relative to its size, the CLIP term 1 - cos (a value on bfloat16's grid of
+# 2^-8) within two steps of that grid, the objective within the weighted sum
+# of the two, and each term's gradient within BF16_GRAD_DIST of the float32
+# gradient's norm. At the edit's last vector the objective is held relative
+# to its size. Limits from readings on an H100 at 700 W (PERF.md): VA
+# 1.8 %, CLIP 1.25e-3, gradients 2.4e-2 (VA) and 4.8e-3, the last vector's
+# objective 9.7 %.
+AWAY, BF16_VA_RTOL, BF16_CLIP_ATOL = 0.1, 2.0 ** -4, 2.0 ** -7
+BF16_GRAD_DIST, BF16_LAST_RTOL = 2.0 ** -3, 0.25
 
 # K2 against its plain version. float32: both sum in float32 in different
 # orders; outputs and log-sum-exp are of order 1 or smaller, gradients are
@@ -799,6 +843,188 @@ def tiled_vae_phase(stack, rng):
     check(e_enc <= 1e-4, "tiled VAE encode disagrees with the CPU")
 
 
+def kernel_launches():
+    """The launch counts of K1 and the three K2 kernels."""
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+    from rgie_tpu_torch.ops.kernels import pointwise_chain as PC
+
+    return PC.LAUNCHES, FA.LAUNCHES_FWD, FA.LAUNCHES_BWD_DKV, FA.LAUNCHES_BWD_DQ
+
+
+def reset_kernel_launches():
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+    from rgie_tpu_torch.ops.kernels import pointwise_chain as PC
+
+    PC.LAUNCHES = FA.LAUNCHES_FWD = FA.LAUNCHES_BWD_DKV = FA.LAUNCHES_BWD_DQ = 0
+
+
+def print_row(what, row, seconds, card):
+    d = row["detail"]
+    print(f"{what}: {d['batch']} images {d['steps']} steps in {d['edit_seconds']:.3f} s = "
+          f"{d['per_step_ms_batched']:.2f} ms/step, {row['value']:.4f} img/s, "
+          f"{d['achieved_tflops']:.2f} TFLOP/s ({d['step_tflop']:.3f} TFLOP a step as "
+          f"FlopCounterMode counts it), MFU {d['mfu_pct']:.2f} % of the {d['dtype']} peak, "
+          f"peak memory {d['peak_memory_gib']:.2f} GiB, phase {seconds:.1f} s, on {card}")
+    print(json.dumps(row))
+
+
+def check_edit(result, edited, lo, hi, what):
+    check(bool(torch.isfinite(result.losses).all()), f"{what}: non-finite loss")
+    check(bool((result.best_loss <= result.first_loss).all()), f"{what}: best_loss > first_loss")
+    check(bool(torch.isfinite(edited).all()), f"{what}: non-finite edited image")
+    check(float(edited.min()) >= lo and float(edited.max()) <= hi,
+          f"{what}: edited images outside [{lo}, {hi}]")
+    check(result.best_x.dtype == torch.float32, f"{what}: optimized vector not float32")
+
+
+def parametric_terms(models, cfg, weights, images, alphas, x):
+    """{term: (value, gradient)} of the parametric objective at ``x`` for
+    each (weight_clf, weight_recon) of ``weights``, one image."""
+    import dataclasses
+
+    from rgie_tpu_torch.engine import parametric as P
+
+    out = {}
+    for term, (weight_clf, weight_recon) in weights.items():
+        c = dataclasses.replace(cfg, weight_clf=weight_clf, weight_recon=weight_recon)
+        ctx = P.make_context(models, c, images, alphas)
+        v = x.detach().clone().requires_grad_(True)
+        loss = P.make_objective(models, c)(v, ctx)
+        loss.sum().backward()
+        out[term] = (float(loss[0].detach()), v.grad[0].double().cpu())
+    return out
+
+
+def bench_phase(device, card):
+    """Phase 11: cli/bench.py's workload in bfloat16, and its objective
+    against the float32 models'."""
+    from rgie_tpu_torch.cli import bench
+    from rgie_tpu_torch.ops import chain as CH
+
+    t0 = time.perf_counter()
+    models, cfg, images, alphas = bench.build(BENCH_BATCH, torch.bfloat16, False, device)
+    reset_kernel_launches()
+    row, result, edited = bench.run(models, cfg, images, alphas, runs=1)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    check(launches == (0, 0, 0, 0), f"the bench's edit launched K1/K2: {launches}")
+    check(result.losses.shape == (BENCH_BATCH, bench.NUM_STEPS), "bench: loss trajectory shape")
+    check_edit(result, edited, 0.0, 1.0, "bench")
+    check(next(models.va_loss.regressor.net.parameters()).dtype == torch.bfloat16,
+          "bench: the regressor is not bfloat16")
+
+    models32, _, images32, _ = bench.build(1, torch.float32, False, device)
+    check(bool((images32[0] == images[0]).all()), "bench: the float32 build drew other images")
+    identity = CH.pack_params(CH.init_params(device=device))[None]
+    away = identity + (torch.rand(identity.shape, generator=torch.Generator().manual_seed(1))
+                       * 2 - 1).to(device) * AWAY
+    weights = {"VA": (1.0, 0.0), "CLIP": (0.0, 1.0),
+               "objective": (cfg.weight_clf, cfg.weight_recon)}
+    for where, x in (("away from the identity", away), ("its last vector", result.last_x[:1])):
+        terms = {name: parametric_terms(m, cfg, weights, images[:1], alphas[:1], x)
+                 for name, m in (("bfloat16", models), ("float32", models32))}
+        for term in weights:
+            (v16, g16), (v32, g32) = terms["bfloat16"][term], terms["float32"][term]
+            dist = float((g16 - g32).norm() / g32.norm())
+            print(f"bench {term} of image 0 at {where}: bfloat16 {v16:.6f}, float32 {v32:.6f}, "
+                  f"difference {abs(v16 - v32):.3e} ({abs(v16 - v32) / abs(v32):.3e} of it); "
+                  f"gradient {dist:.3e} of the float32 gradient's norm "
+                  f"({float(g32.norm()):.3e}) away from it")
+            check(bool(torch.isfinite(g16).all()), f"bench: non-finite bfloat16 {term} gradient")
+        if x is away:
+            va_tol = BF16_VA_RTOL * abs(terms["float32"]["VA"][0])
+            tolerance = {"VA": va_tol, "CLIP": BF16_CLIP_ATOL,
+                         "objective": cfg.weight_clf * va_tol + cfg.weight_recon * BF16_CLIP_ATOL}
+            for term, tol in tolerance.items():
+                (v16, g16), (v32, g32) = terms["bfloat16"][term], terms["float32"][term]
+                check(abs(v32) > 4 * tol, f"bench: the float32 {term} is within 4 tolerances of 0")
+                check(abs(v16 - v32) <= tol, f"bench: the bfloat16 {term} is too far from float32")
+                check(float((g16 - g32).norm() / g32.norm()) <= BF16_GRAD_DIST,
+                      f"bench: the bfloat16 {term} gradient is too far from float32")
+        else:
+            v16, v32 = terms["bfloat16"]["objective"][0], terms["float32"]["objective"][0]
+            check(abs(v16 - v32) <= BF16_LAST_RTOL * abs(v32),
+                  "bench: the bfloat16 objective at the last vector is too far from float32")
+    print_row("bench (256 px parametric edit, bfloat16)", row, time.perf_counter() - t0, card)
+
+
+def gan_phase(device, card):
+    """Phase 12: the MUNIT edit at full width in bfloat16, through
+    cli/bench_gan.py."""
+    from rgie_tpu_torch.cli import bench_gan
+
+    t0 = time.perf_counter()
+    models, cfg, images, alphas = bench_gan.build(GAN_BATCH, torch.bfloat16, False, NUM_STEPS,
+                                                  GAN_SIZE, device)
+    build_s = time.perf_counter() - t0
+    reset_kernel_launches()
+    row, result, edited = bench_gan.run(models, cfg, images, alphas, runs=1)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    check(launches == (0, 0, 0, 0), f"the GAN edit launched K1/K2: {launches}")
+    check(result.losses.shape == (GAN_BATCH, NUM_STEPS), "GAN edit: loss trajectory shape")
+    check(result.best_x.shape == (GAN_BATCH, 8), "GAN edit: style shape")
+    check(edited.shape == images.shape, "GAN edit: edited shape")
+    check_edit(result, edited, -1.0, 1.0, "GAN edit")
+    print(f"GAN edit: models built in {build_s:.1f} s; losses (image 0, every 10th step): "
+          + " ".join(f"{v:.5f}" for v in result.losses[0, ::10].tolist())
+          + f"; best {result.best_loss.tolist()} at steps {result.best_step.tolist()}")
+    print_row("GAN edit (MUNIT 1024 px, bfloat16)", row, time.perf_counter() - t0, card)
+
+
+def gan_card_against_cpu_phase(device, rng):
+    """Phase 13: the full-width GAN objective in float32 on the card and on
+    the CPU, the discriminator term on."""
+    from rgie_tpu_torch.config import GanEditConfig, MunitGenConfig, OptimizeConfig
+    from rgie_tpu_torch.engine import gan as GE
+    from rgie_tpu_torch.losses.emotion_loss import ValenceArousalLoss
+    from rgie_tpu_torch.models.discriminators import MultiResPatchDiscriminator
+    from rgie_tpu_torch.models.emotion import create_regressor
+    from rgie_tpu_torch.models.init import freeze_, random_init_
+    from rgie_tpu_torch.models.munit import create_generator
+
+    t0 = time.perf_counter()
+    g = torch.Generator().manual_seed(0)
+    models = GE.GanEditModels(
+        generator=create_generator(g, MunitGenConfig()).autoencoder_a,
+        va_loss=ValenceArousalLoss(create_regressor(g, normalize=False)),
+        dis=freeze_(random_init_(MultiResPatchDiscriminator(), g)))
+    cfg = GanEditConfig(optimize=OptimizeConfig(num_steps=1), input_size=GAN_CPU_SIZE,
+                        crop_size=GAN_CPU_SIZE, weight_dis=0.1)
+    images = torch.from_numpy(rng.uniform(-1, 1, (2, GAN_CPU_SIZE, GAN_CPU_SIZE, 3))
+                              .astype(np.float32))
+    alphas = torch.tensor([[0.1, 0.1], [-0.1, 0.2]])
+    grads = {}
+    reset_kernel_launches()
+    for dtype in (torch.float32, torch.float64):
+        out = []
+        for dev in (torch.device("cpu"), device):   # the CPU first: .to() moves the modules
+            m = GE.GanEditModels(*(x.to(dev, dtype) for x in models))
+            ctx, style0 = GE.make_context(m, images.to(dev, dtype), alphas.to(dev, dtype))
+            style = (style0 + 0.3).requires_grad_(True)
+            loss = GE.make_objective(m, cfg)(style, ctx)
+            loss.sum().backward()
+            with torch.no_grad():
+                decoded = m.generator.decode(ctx.content, style0 + 0.3)
+            out.append({"content": ctx.content, "style": style0, "decode": decoded,
+                        "objective": loss.detach(), "style gradient": style.grad})
+        cpu, card = out
+        grads[dtype] = card["style gradient"].cpu()
+        errs = {k: float((card[k].cpu().double() - cpu[k].double()).abs().max()
+                         / cpu[k].double().abs().max()) for k in cpu}
+        print(f"GAN card against CPU, {str(dtype)[6:]} at {GAN_CPU_SIZE} px (max abs error "
+              "relative to the largest entry): " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f"; objective {card['objective'].tolist()}; "
+              f"{time.perf_counter() - t0:.1f} s into the phase")
+        for k, v in errs.items():
+            tol = GAN_GRAD32_RTOL if (k, dtype) == ("style gradient", torch.float32) else GAN_CPU_RTOL
+            check(v <= tol, f"GAN card against CPU: {k} disagrees in {dtype}")
+    launches = kernel_launches()
+    check(launches == (0, 0, 0, 0), f"the GAN objective launched K1/K2: {launches}")
+    print("GAN style gradient on the card, float32 against float64: "
+          f"{rel_err(grads[torch.float32], grads[torch.float64]):.2e} of the largest entry")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
@@ -963,6 +1189,14 @@ def main():
     tiled_vae_phase(stack, rng)
     del stack
     torch.cuda.empty_cache()
+
+    # ---- 11-13. the bench's bfloat16 workload, the GAN edit, its check
+    # against the CPU
+    bench_phase(device, card)
+    torch.cuda.empty_cache()
+    gan_phase(device, card)
+    torch.cuda.empty_cache()
+    gan_card_against_cpu_phase(device, rng)
     for entry, a, b, c in zip(k2_entries, counts_f32, counts_bf16, counts_sdxl):
         entry["launches"] = a + b + c
     k2_entries[0]["sdxl_launches"] = counts_sdxl[0]

@@ -65,6 +65,62 @@ class ParamEditConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GanEditConfig:
+    """MUNIT style-space editing (reference: src/optimize_image_imaginaire.py:29-54)."""
+
+    optimize: OptimizeConfig = dataclasses.field(
+        default_factory=lambda: OptimizeConfig(num_steps=300, learning_rate=0.05)
+    )
+    weight_clf: float = 0.2
+    weight_recon: float = 1.0
+    weight_dis: float = 0.0
+    input_size: int = 1024
+    crop_size: int = 1024
+    # Recompute the objective (decode -> VA -> re-encode) on backward: room
+    # for 1024 px edits at a useful batch.
+    remat: bool = False
+    adaptations: Tuple[Tuple[str, float], ...] = (
+        ("pos_01", 0.1),
+        ("pos_02", 0.2),
+        ("neg_01", -0.1),
+        ("neg_02", -0.1),
+        ("neutral", 0.0),
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class MunitGenConfig:
+    """MUNIT generator hyper-parameters (reference:
+    src/external/imaginaire/imagenet2imagenet.yaml:54-67)."""
+
+    latent_dim: int = 8
+    num_filters: int = 64
+    max_num_filters: int = 256
+    num_filters_mlp: int = 256
+    num_res_blocks: int = 4
+    num_mlp_blocks: int = 2
+    num_downsamples_style: int = 4
+    num_downsamples_content: int = 3
+    num_image_channels: int = 3
+    content_norm_type: str = "instance"
+    style_norm_type: str = "none"
+    decoder_norm_type: str = "instance"
+    pre_act: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MunitDisConfig:
+    """MUNIT discriminator hyper-parameters (imagenet2imagenet.yaml:68-75)."""
+
+    patch_wise: bool = True
+    num_filters: int = 48
+    max_num_filters: int = 1024
+    num_layers: int = 5
+    num_scales: int = 3
+    num_image_channels: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
 class AdaptConfig:
     """Diffusion inversion/resampling settings (reference: src/adapt_images/config.py:3-11).
     ``end_iteration=None`` means "use num_inversion_steps"."""

@@ -7,6 +7,12 @@ of ``nn.MultiheadAttention`` (``in_proj_weight``, ``in_proj_bias``,
 ``out_proj``), so OpenAI state dicts load and the numerics follow Flax's
 ``MultiHeadDotProductAttention``. The text tower comes with the diffusion
 slice.
+
+``dtype`` is Flax's compute type, as in the JAX package: the patch kernel,
+the class and positional embeddings, the projection and every dense layer
+hold their weights rounded once to it; the LayerNorms keep float32
+parameters, normalize in float32 and return ``dtype``. The float32 patch
+product and the embedding sums follow JAX's type promotion.
 """
 
 from __future__ import annotations
@@ -30,6 +36,19 @@ class QuickGELU(nn.Module):
         return quick_gelu(x)
 
 
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (eps 1e-5) as Flax's ``LayerNorm(dtype=...)``:
+    statistics and affine in float32, the result in ``compute_dtype``."""
+
+    def __init__(self, width: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(width, eps=1e-5)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(self.compute_dtype)
+
+
 class SelfAttention(nn.Module):
     """Multi-head self-attention with ``nn.MultiheadAttention``'s names."""
 
@@ -51,11 +70,11 @@ class SelfAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, width: int, heads: int):
+    def __init__(self, width: int, heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln_1 = nn.LayerNorm(width, eps=1e-5)
+        self.ln_1 = LayerNorm(width, dtype)
         self.attn = SelfAttention(width, heads)
-        self.ln_2 = nn.LayerNorm(width, eps=1e-5)
+        self.ln_2 = LayerNorm(width, dtype)
         self.mlp = nn.Sequential(OrderedDict([
             ("c_fc", nn.Linear(width, width * 4)),
             ("gelu", QuickGELU()),
@@ -68,10 +87,10 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class Transformer(nn.Module):
-    def __init__(self, width: int, layers: int, heads: int):
+    def __init__(self, width: int, layers: int, heads: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            [ResidualAttentionBlock(width, heads) for _ in range(layers)])
+            [ResidualAttentionBlock(width, heads, dtype) for _ in range(layers)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.resblocks:
@@ -85,23 +104,32 @@ class VisionTransformer(nn.Module):
 
     def __init__(self, width: int = 768, layers: int = 12, heads: int = 12,
                  patch_size: int = 32, input_resolution: int = 224,
-                 output_dim: int = 512):
+                 output_dim: int = 512, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.input_resolution = input_resolution
         self.conv1 = nn.Conv2d(3, width, patch_size, patch_size, bias=False)
         n_tok = (input_resolution // patch_size) ** 2 + 1
         self.class_embedding = nn.Parameter(torch.zeros(width))
         self.positional_embedding = nn.Parameter(torch.zeros(n_tok, width))
-        self.ln_pre = nn.LayerNorm(width, eps=1e-5)
-        self.transformer = Transformer(width, layers, heads)
-        self.ln_post = nn.LayerNorm(width, eps=1e-5)
+        self.ln_pre = LayerNorm(width, dtype)
+        self.transformer = Transformer(width, layers, heads, dtype)
+        self.ln_post = LayerNorm(width, dtype)
         self.proj = nn.Parameter(torch.zeros(width, output_dim))
+        for m in self.modules():
+            if not isinstance(m, nn.LayerNorm):
+                for p in m.parameters(recurse=False):
+                    p.data = p.data.to(dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.conv1(x.permute(0, 3, 1, 2))            # (B, width, grid, grid)
+        # The patch product in the promoted type (float32 for a float32 image
+        # and a bfloat16 kernel), as JAX promotes ``patches @ kernel``.
+        kernel = self.conv1.weight
+        ptype = torch.promote_types(x.dtype, kernel.dtype)
+        x = F.conv2d(x.permute(0, 3, 1, 2).to(ptype), kernel.to(ptype),
+                     stride=self.conv1.stride)            # (B, width, grid, grid)
         x = x.flatten(2).transpose(1, 2)                 # (B, grid*grid, width)
         cls = self.class_embedding.expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.positional_embedding
+        x = torch.cat([cls.to(x.dtype), x], dim=1) + self.positional_embedding
         x = self.transformer(self.ln_pre(x))
         return self.ln_post(x[:, 0, :]) @ self.proj
 
@@ -126,10 +154,12 @@ class ClipImageEncoder(nn.Module):
         return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
 
 
-def create_clip_image_encoder(generator: torch.Generator, **kw) -> ClipImageEncoder:
+def create_clip_image_encoder(generator: torch.Generator, dtype: torch.dtype = torch.float32,
+                              **kw) -> ClipImageEncoder:
     """Random-weight frozen encoder (Flax's initializers: embeddings N(0,
-    0.02), projection N(0, width^-0.5)), on the CPU."""
-    model = VisionTransformer(**kw)
+    0.02), projection N(0, width^-0.5)), on the CPU, computing in ``dtype``
+    (the float32 draws rounded once to it)."""
+    model = VisionTransformer(dtype=dtype, **kw)
     width = model.class_embedding.shape[0]
     random_init_(model, generator, stds={"class_embedding": 0.02,
                                          "positional_embedding": 0.02,

@@ -8,6 +8,13 @@ documented deviation from the reference's RandomCrop in the loss path);
 pass a ``torch.Generator`` for stochastic crops. Only the plain-crop branch
 is ported: the JAX package's ten-crop-in-space-to-depth forms compute the
 same numbers on a TPU-friendly layout.
+
+The compute type is the network's (``resnet50(dtype=...)``): the images are
+cast to it before the resize, so the resize, the crops and the
+normalization run in it, and the prediction and its sigmoid stay in it.
+PyTorch's CPU has no bfloat16 antialiased resize, so there a bfloat16 image
+is resized in float32 and rounded once (the CUDA kernel accumulates in
+float32 and rounds once too).
 """
 
 from __future__ import annotations
@@ -41,7 +48,11 @@ class EmotionRegressor(nn.Module):
     def forward(self, images: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, H, W, 3) -> (B, num_classes), the mean prediction over crops."""
-        x = G.resize_shorter_side(images, self.input_size, antialias=True)
+        dtype = self.net.compute_dtype
+        x = images.to(dtype)
+        if dtype == torch.bfloat16 and x.device.type == "cpu":
+            x = x.float()
+        x = G.resize_shorter_side(x, self.input_size, antialias=True).to(dtype)
         x = G.replicate_and_crop(x, self.crop_size, self.num_replications,
                                  generator=generator)
         if self.normalize:
@@ -54,10 +65,12 @@ class EmotionRegressor(nn.Module):
 
 def create_regressor(generator: torch.Generator, num_classes: int = 4,
                      normalize: bool = True, input_size: int = 480,
-                     crop_size: int = 448, use_sigmoid: bool = True) -> EmotionRegressor:
+                     crop_size: int = 448, use_sigmoid: bool = True,
+                     dtype: torch.dtype = torch.float32) -> EmotionRegressor:
     """Random-weight ResNet-50 regressor (stand-in for the external
-    ``va_pred_all`` checkpoint), frozen, on the CPU."""
-    net = random_init_(resnet50(num_classes), generator)
+    ``va_pred_all`` checkpoint), frozen, on the CPU, computing in ``dtype``
+    (the float32 draws rounded once to it)."""
+    net = random_init_(resnet50(num_classes, dtype), generator)
     return freeze_(EmotionRegressor(net, num_classes=num_classes, input_size=input_size,
                                     crop_size=crop_size, normalize=normalize,
                                     use_sigmoid=use_sigmoid))

@@ -7,6 +7,11 @@ block of every stage, and the plain stem only: 7x7 stride-2 conv, BatchNorm
 stems are TPU layout levers with the same numbers and have no counterpart.
 Parameter names are torchvision's, so a ``va_pred_all`` state dict loads
 with ``load_state_dict(strict=True)``.
+
+``dtype`` is Flax's compute type, as in the JAX package: the convolutions
+and the head hold their weights rounded once to it and take their input in
+it; BatchNorm keeps float32 statistics and affine parameters, normalizes in
+float32 and returns ``dtype``, as Flax's ``BatchNorm(dtype=...)`` does.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ class ResNet(nn.Module):
     ResNet-50. Takes NCHW (``channels_last`` works too), returns logits."""
 
     def __init__(self, stage_sizes: Sequence[int], num_classes: int,
-                 num_filters: int = 64):
+                 num_filters: int = 64, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv1 = nn.Conv2d(3, num_filters, 7, 2, 3, bias=False)
         self.bn1 = nn.BatchNorm2d(num_filters, eps=1e-5)
@@ -64,13 +69,21 @@ class ResNet(nn.Module):
             self.add_module(f"layer{i + 1}", nn.Sequential(*layer))
         self.num_stages = len(stage_sizes)
         self.fc = nn.Linear(inplanes, num_classes)
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                m.to(dtype)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The type the convolutions compute in (follows ``.to(dtype)``)."""
+        return self.conv1.weight.dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.maxpool(F.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(F.relu(self.bn1(self.conv1(x.to(self.compute_dtype)))))
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)
         return self.fc(x.mean(dim=(2, 3)))
 
 
-def resnet50(num_classes: int) -> ResNet:
-    return ResNet(stage_sizes=(3, 4, 6, 3), num_classes=num_classes)
+def resnet50(num_classes: int, dtype: torch.dtype = torch.float32) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), num_classes=num_classes, dtype=dtype)

@@ -1,8 +1,11 @@
-"""Reading torch checkpoint files for the port's modules."""
+"""Reading torch checkpoint files for the port's modules: plain state
+dicts, and imaginaire's MUNIT checkpoint with its spectral norms folded into
+the kernels (the port's own copies of ``realize_spectral_norm`` and
+``filter_imaginaire_states`` of ``rgie_tpu/utils/torch_convert.py``)."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Mapping, Optional
 
 import torch
 
@@ -15,3 +18,81 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
     return {k: v.detach() for k, v in obj.items() if isinstance(v, torch.Tensor)}
+
+
+def realize_spectral_norm(weight_orig: torch.Tensor, u: torch.Tensor,
+                          v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Fold torch's spectral norm into the kernel: W / sigma, sigma = u^T W v
+    from the STORED power-iteration vectors, as torch computes it at eval
+    (rgie_tpu/utils/torch_convert.py:39-58). Without a stored v, v =
+    normalize(W^T u)."""
+    w = weight_orig.detach().float()
+    w_mat = w.reshape(w.shape[0], -1)
+    u = u.detach().float().reshape(-1)
+    if v is None:
+        v = w_mat.T @ u
+        v = v / (torch.linalg.vector_norm(v) + 1e-12)
+    else:
+        v = v.detach().float().reshape(-1)
+    return w / torch.dot(u, w_mat @ v)
+
+
+def filter_imaginaire_states(state_dict: Mapping[str, torch.Tensor],
+                             use_averaged_model: bool = False) -> Dict[str, torch.Tensor]:
+    """Strip 'module.' prefixes and keep the (non-)averaged model's keys
+    (get_relevant_states, optimize_image_imaginaire.py:148-159)."""
+    if use_averaged_model:
+        out = {k.replace("module.", ""): v for k, v in state_dict.items()
+               if "averaged_model" in k}
+        out = {k.replace("averaged_model.", ""): v for k, v in out.items()}
+    else:
+        out = {k.replace("module.", ""): v for k, v in state_dict.items()
+               if "averaged_model" not in k}
+    out.pop("num_updates_tracked", None)
+    return out
+
+
+def fold_spectral_norms(state_dict: Mapping[str, torch.Tensor], prefix: str
+                        ) -> Dict[str, torch.Tensor]:
+    """The entries under ``prefix`` (stripped), with every spectral-normed
+    ``weight_orig`` / ``weight_u`` / ``weight_v`` triple replaced by the
+    realized ``weight``."""
+    sd = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    out = {}
+    for k, v in sd.items():
+        if k.endswith(".weight_orig"):
+            base = k[:-len("_orig")]
+            out[base] = realize_spectral_norm(v, sd[f"{base}_u"], sd.get(f"{base}_v"))
+        elif not k.endswith((".weight_u", ".weight_v")):
+            out[k] = v.detach()
+    return out
+
+
+def load_munit_checkpoint(path: str, cfg, weight_dis: float = 0.0):
+    """imaginaire ``imaginaire_munit_200000_s5.pt`` -> (the domain-a
+    ``AutoEncoder`` of ``net_G``, frozen, float32, on the CPU; and, when
+    ``weight_dis > 0`` and the checkpoint has ``net_D``, its
+    ``discriminator_a`` as a ``MultiResPatchDiscriminator``, else None).
+    Spectral norms are folded into the kernels and both load with
+    ``strict=True`` (scripts/optimize_image_imaginaire.py:77-103). ``cfg`` is
+    the ``MunitGenConfig``; the discriminator has ``MunitDisConfig``'s
+    shipped widths and as many scales as the checkpoint holds."""
+    from rgie_tpu_torch.config import MunitDisConfig
+    from rgie_tpu_torch.models.discriminators import MultiResPatchDiscriminator
+    from rgie_tpu_torch.models.init import freeze_
+    from rgie_tpu_torch.models.munit import AutoEncoder
+
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    gen = AutoEncoder(cfg)
+    gen.load_state_dict(fold_spectral_norms(filter_imaginaire_states(ckpt["net_G"]),
+                                            "autoencoder_a."), strict=True)
+    dis = None
+    if weight_dis > 0 and "net_D" in ckpt:
+        dis_sd = fold_spectral_norms(filter_imaginaire_states(ckpt["net_D"]), "discriminator_a.")
+        num_dis = len({k.split(".")[1] for k in dis_sd if k.startswith("discriminators.")})
+        dis_cfg = MunitDisConfig()
+        dis = MultiResPatchDiscriminator(num_dis, dis_cfg.num_filters, dis_cfg.num_layers,
+                                         dis_cfg.max_num_filters)
+        dis.load_state_dict(dis_sd, strict=True)
+        dis = freeze_(dis)
+    return freeze_(gen), dis

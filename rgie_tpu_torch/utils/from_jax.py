@@ -309,3 +309,55 @@ def midu_state_dict(flax_variables: Mapping[str, Any], is_sdxl: bool = False
         sd[f"{i}.weight"] = _t(w)
         sd[f"{i}.bias"] = _t(p[f"dense_{n}"]["bias"])
     return sd
+
+
+def munit_state_dict(flax_variables: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """{'params'} of ``rgie_tpu.models.munit.AutoEncoder`` (one domain) ->
+    imaginaire-keyed ``rgie_tpu_torch.models.munit.AutoEncoder`` state dict
+    (inverse of ``convert_munit_autoencoder``). ``cfg`` is the
+    ``MunitGenConfig``."""
+    p = flax_variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def block(dst, src):
+        _put_conv(sd, f"{dst}.layers.conv", src["conv"])
+        norm = src.get("norm")
+        if norm is not None and "fc" in norm:
+            _put_linear(sd, f"{dst}.layers.norm.fc.layers.conv", norm["fc"])
+        elif norm is not None:
+            _put_norm(sd, f"{dst}.layers.norm", norm)
+
+    se, n_style = p["style_encoder"], 1 + cfg.num_downsamples_style
+    for i in range(n_style):
+        block(f"style_encoder.model.{i}", se[f"layer_{i}"])
+    sd[f"style_encoder.model.{n_style + 1}.weight"] = _dense(se["fc"]["kernel"])[:, :, None, None]
+    sd[f"style_encoder.model.{n_style + 1}.bias"] = _t(se["fc"]["bias"])
+
+    ce, n_content = p["content_encoder"], 1 + cfg.num_downsamples_content
+    for i in range(n_content):
+        block(f"content_encoder.model.{i}", ce[f"layer_{i}"])
+    de, r_blocks = p["decoder"], cfg.num_res_blocks
+    for r in range(r_blocks):
+        for b in (0, 1):
+            block(f"content_encoder.model.{n_content + r}.conv_block_{b}",
+                  ce[f"res_{r}"][f"conv_block_{b}"])
+            block(f"decoder.decoder.{r}.conv_block_{b}", de[f"res_{r}"][f"conv_block_{b}"])
+    for k in range(cfg.num_downsamples_content):
+        block(f"decoder.decoder.{r_blocks + 2 * k + 1}", de[f"up_{k}"])
+    block(f"decoder.decoder.{r_blocks + 2 * cfg.num_downsamples_content + 1}", de["out"])
+    for i in range(cfg.num_mlp_blocks):
+        _put_linear(sd, f"mlp.model.{i}.layers.conv", p["mlp"][f"linear_{i}"])
+    return sd
+
+
+def multires_patch_discriminator_state_dict(flax_variables: Mapping[str, Any],
+                                            num_layers: int = 5) -> Dict[str, torch.Tensor]:
+    """{'params'} of ``rgie_tpu.models.discriminators.MultiResPatchDiscriminator``
+    -> the port's imaginaire-keyed state dict (inverse of
+    ``convert_multires_patch_discriminator``)."""
+    p = flax_variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(len(p)):
+        for n in range(num_layers + 2):
+            _put_conv(sd, f"discriminators.{i}.layer{n}.0.layers.conv", p[f"dis_{i}"][f"layer{n}"])
+    return sd

@@ -73,7 +73,8 @@ def test_attention_library_call_is_only_the_smoke_yardstick():
 
 
 @pytest.mark.parametrize("name", ["OptimizeConfig", "ParamEditConfig", "AdaptConfig",
-                                  "GuidanceConfig"])
+                                  "GuidanceConfig", "GanEditConfig", "MunitGenConfig",
+                                  "MunitDisConfig"])
 def test_config_defaults_equal_the_jax_package(name):
     from rgie_tpu import config as C_j
     from rgie_tpu_torch import config as C
