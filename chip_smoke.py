@@ -28,7 +28,9 @@ Phases (every check raises; nothing is caught):
    beside them as a yardstick only; float32 dQ is also timed at
    (1, 5, 16384, 64), the null-text step's shape. Kernel and matmul routes
    are also timed at (2, 10, 4096, 64), below the modules' gate, in both
-   types.
+   types. The shapes a batch of 2 adds, (4, 5, 16384, 64) and
+   (2, 1, 16384, 512), forward only, in bfloat16: checked and timed beside
+   the plain version, ``sdpa`` and the bound.
 3. Slice A's path: the parametric-edit CLI's per-batch function
    (``edit_batch``) on 4 random 480x480 images: ResNet-50 ten-crop 480/448
    regressor and CLIP ViT-B/32 at 224 with random weights from the seed, 100
@@ -39,7 +41,7 @@ Phases (every check raises; nothing is caught):
    1e-3) and its re-render (atol 1e-4) agree with the same computation on
    the CPU.
 4. The diffusion edit in float32: the diffusion-edit CLI's ``build_models``
-   and per-image function (``adapt_image``) on one random 1024 px image at
+   and ``adapt_batches`` at ``--batch 1`` on one random 1024 px image at
    SD-2.1 width (UNet ``sd21``, VAE ``sd``, OpenCLIP ViT-H text tower,
    ``MiduSD``), random weights from the seed, ``--dtype float32`` with TF32
    off, null-text optimization on, ``--cfg-scale 2.0 --clf-scale 0.2
@@ -69,7 +71,7 @@ Phases (every check raises; nothing is caught):
    ``build_models`` (SDXL base width: UNet ``sdxl``, VAE ``sdxl``, CLIP
    ViT-L and OpenCLIP bigG text towers, ``MiduSDXL``; random weights from the
    seed, made on the host and moved once, the time printed) and
-   ``adapt_image`` on the 1024 px image with ``--scheduler dpm`` (karras
+   ``adapt_batches`` on the 1024 px image with ``--scheduler dpm`` (karras
    sigmas + lu lambdas, forward and dedup'd inverse tables; the inverse
    table's length printed), null-text optimization on, ``--cfg-scale 2.0
    --clf-scale 0.2 --reference-value 0.1`` and ``SDXL_STEPS`` DPM steps (the
@@ -117,13 +119,48 @@ Phases (every check raises; nothing is caught):
    terms that cancel (its distance from the float64 gradient is printed),
    to ``GAN_GRAD32_RTOL``; then all of it again with the same modules in
    float64, to ``GAN_CPU_RTOL``. No K1/K2 launch.
-14. Each path is driven with the launch counts set to 0 just before it and
+14. The batched edit's rows, in float32 with TF32 off on phase 4's stack (run
+   after phase 6): a batch of ``BATCH`` random 1024 px images with their
+   conds from the CLI's ``batch_conds``, ``BATCH_CHECK_STEPS`` DDIM steps and
+   ``BATCH_CHECK_INNER`` null-text inner steps, each row against the
+   single-image edit of its image (the pipeline's single-image functions), and
+   ``make_segmented_edit`` with windows of 1 step against the whole batched
+   edit: images, scores and null-text embeddings within ``BATCH_RTOL`` of the
+   largest entry.
+15. Midu training through its CLI (``cli/train_guidance_clf.py``) at
+   ``--scale sd`` (SD-2.1 width, 512 px, bfloat16 frozen models, random
+   weights and images from the seed) for 2 steps at batch 8 and one
+   validation batch; then the best checkpoint is read into phase 7's stack
+   by ``--midu-ckpt``'s loader (``strict=True``) and held equal to it.
+16. The batched edit through the diffusion CLI's ``adapt_batches`` at
+   ``--batch BATCH`` on a feed of random 1024 px JPEGs, on phase 7's stack
+   (bfloat16, the trained midu) at ``BATCH_STEPS`` DDIM steps. Checks: the
+   K2 launch counts equal ``expected_flash_launches`` with each step's most
+   inner steps (the batch rides in each launch); the batch's K2 shapes
+   launched (printed); images, scores, null-text embeddings (float32) and
+   guidance norms per image. Seconds per image, img/s and peak memory are
+   printed beside phase 7's single edit at the same steps.
+17. ControlNet at SD-2.1 width on phase 7's bfloat16 UNet (zero convolutions
+   drawn away from zero), 1024 px, batch 2: forward and backward of
+   ``controlled_unet_apply`` to the latents and the control image; K2 launches
+   equal the derived count (the UNet's 5 top-level sites and the ControlNet's
+   copies of its top down block, each with a backward); kernel route against
+   plain route (the modules' flash attention swapped for its plain version):
+   ``CN_OUT_TOL`` / ``CN_GRAD_TOL`` of the largest entry. Then float32 copies on
+   the card against the CPU at ``CN_CPU_SIZE`` px: 1e-3.
+18. Midu training at SDXL width on phase 8's stack (run after phase 10): the
+   training CLI's ``features_and_labels`` and train step, ``MIDU_STEPS`` steps
+   at batch ``MIDU_BATCH``, 1024 px; K2-fwd ``wide`` once per VAE encode and no
+   other launch. One float32 step on the card against the CPU from the same
+   weights on the same features and labels.
+19. Each path is driven with the launch counts set to 0 just before it and
    read just after. One JSON line ``{"kernels": [...]}`` (the K2 entries'
    times are bfloat16's, the type the full-width path runs by default, with
-   float32's beside them under ``float32_*``; their launches the sum of
-   phase 4's, phase 7's and phase 8's edit; the GAN path and the bench
-   launch none), then the card, then the last line ``{"ok": true,
-   "device": {...}}``.
+   float32's beside them under ``float32_*`` and the shapes a batch of 2
+   adds under ``batch_shapes``; their launches the sum over the paths, by
+   path under ``launches_by_path``; the GAN path and the bench launch
+   none), then the card, then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.
@@ -166,6 +203,33 @@ GAN_CPU_RTOL, GAN_GRAD32_RTOL = 1e-3, 5e-2
 # objective 9.7 %.
 AWAY, BF16_VA_RTOL, BF16_CLIP_ATOL = 0.1, 2.0 ** -4, 2.0 ** -7
 BF16_GRAD_DIST, BF16_LAST_RTOL = 2.0 ** -3, 0.25
+
+# The batched edit: phase 16's batch and DDIM steps, and phase 14's float32
+# check of each row against its image's single edit (as few steps as still
+# run null-text optimization and guidance, 2 inner steps each). A batch of 2
+# may take other cuDNN algorithms than a batch of 1, and a segmented run of a
+# backward need not repeat it bit for bit: rows and windows are held to 1e-3
+# of the largest entry (a tenth of phase 5's single steps' limit would be
+# 1e-4; two outer steps of normalized Adam and normalized guidance carry a
+# rounding on at its own relative size).
+BATCH, BATCH_STEPS, BATCH_CHECK_STEPS, BATCH_CHECK_INNER, BATCH_RTOL = 2, 6, 2, 2, 1e-3
+# The K2 shapes a batch of 2 adds: the CFG pair of two images, and two images
+# through the VAE's mid block (phase 16; also phase 18's VAE encode).
+BATCH_K2_SHAPES = [(4, 5, 16384, 64), (2, 1, 16384, 512)]
+# ControlNet (phase 17): the controlled UNet's kernel route against its plain
+# route in bfloat16, through 7 attention sites in two networks: 2^-5 of the
+# largest entry on eps and the mid features, 5e-2 on the gradients (the limits
+# of the JAX package's check_flash_attn.py); card against CPU in float32 1e-3.
+CN_OUT_TOL, CN_GRAD_TOL, CN_CPU_SIZE = 2.0 ** -5, 5e-2, 256
+# Midu training (phases 15 and 18): SDXL steps at batch 2 on phase 8's stack;
+# one float32 step on the card against the CPU: the loss, the predictions and
+# the gradients 1e-4 relative (to the largest entry), the updates within a
+# hundredth of lr where the gradient (+ the L2 term) is above MIDU_SETTLED of
+# its largest entry. Adam's first step is lr * g / (|g| + eps), a full step
+# of either sign: an entry whose gradient is at the level of its rounding
+# (1.9e-6 of the largest entry on an NVIDIA H100 at 700 W) may step the
+# other way on the other device (5186 of 7.48 M entries 2 lr apart there).
+MIDU_STEPS, MIDU_BATCH, MIDU_RTOL, MIDU_SETTLED = 3, 2, 1e-4, 1e-3
 
 # K2 against its plain version. float32: both sum in float32 in different
 # orders; outputs and log-sum-exp are of order 1 or smaller, gradients are
@@ -375,6 +439,36 @@ def flash_attention_phase(device, card):
     del q, k, v
     torch.cuda.empty_cache()
 
+    # The shapes a batch of 2 adds (phases 16 and 18), forward only there: the
+    # CFG pair of two images and two images through the VAE's mid block.
+    batch_rows = []
+    for shape in BATCH_K2_SHAPES:
+        q, k, v, _ = make(shape, torch.bfloat16, 13)
+        scale = 1.0 / shape[3] ** 0.5
+        o, lse = FA.flash_attention_with_lse(q, k, v, scale)
+        o_ref, lse_ref = FA.reference_flash_attention(q, k, v, scale)
+        e_out = float((o.float() - o_ref.float()).abs().max() / o_ref.float().abs().max())
+        e_lse = float((lse - lse_ref).abs().max())
+        tol = K2_TOLERANCE[torch.bfloat16]
+        check(e_out <= tol["out"] and e_lse <= tol["lse"],
+              f"flash attention forward disagrees with its plain version at {shape} bfloat16")
+        qs, ks, vs = (FA._strided(t) for t in (q, k, v))
+        fwd = time_group([lambda: FA._launch_fwd(qs, ks, vs, scale),
+                          lambda: FA.reference_flash_attention(q, k, v, scale),
+                          lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)], 1, 5)
+        b, h, n, d = shape
+        fwd_bound = bound(4.0 * b * h * n * n * d, 4 * b * h * n * d * 2 + b * h * n * 4,
+                          torch.bfloat16)
+        route = FA.kernel_route("fwd", torch.bfloat16, d)
+        print(f"flash attention {shape} bfloat16 forward ({route}) ms (median of 5, CUDA events) "
+              f"on {card}: kernel {fwd[0]:.3f} plain {fwd[1]:.3f} library sdpa {fwd[2]:.3f} "
+              f"bound {fwd_bound[0]:.3f} ({fwd_bound[1]}); out {e_out:.3e}, lse {e_lse:.3e}")
+        batch_rows.append(dict(shape=list(shape), dtype="bfloat16", route=route, ms=fwd[0],
+                               plain_ms=fwd[1], library_ms=fwd[2], bound_ms=fwd_bound[0],
+                               bound_by=fwd_bound[1], max_abs_err=max(e_out, e_lse)))
+        del q, k, v, o, lse, o_ref, lse_ref, qs, ks, vs
+    torch.cuda.empty_cache()
+
     # The times of the type the full-width path runs by default; float32's
     # (the CLI's --dtype float32) beside them under float32_*.
     t = timings[(unet_shape, torch.bfloat16)]
@@ -404,6 +498,7 @@ def flash_attention_phase(device, card):
     entries[2].update(float32_batch1_shape=list(nto_shape), float32_batch1_ms=nto_dq[0],
                       float32_batch1_bound_ms=nto_bound[0],
                       float32_batch1_library_ms=nto_dq[1])
+    entries[0]["batch_shapes"] = batch_rows
     # The forward's second tensor-core kernel, at the VAE's single wide head.
     entries[0].update(wide_shape=list(vae_shape), wide_kernel_ms=wide["fwd"][0],
                       wide_plain_ms=wide["fwd"][1], wide_bound_ms=wide["bounds"]["fwd"][0],
@@ -461,6 +556,18 @@ def diffusion_models(device, image_path, dtype_name, steps):
     return args, stack
 
 
+def edit_one_image(args, stack, gcfg, acfg, image_path):
+    """The diffusion CLI's ``adapt_batches`` on one image (``--batch 1``):
+    returns (the output label, the edited image (1, H, W, 3) and the run's
+    ``RunLog``)."""
+    from rgie_tpu_torch.cli import adapt_images as cli
+
+    item = (os.path.basename(image_path), image_path, "a random image")
+    (_, out, log, _), = cli.adapt_batches(args, stack, cli.make_adapter(stack), [item], gcfg,
+                                          acfg, args.out_dir)
+    return gcfg.resolved_label(), out.edited, log
+
+
 def diffusion_path_phase(args, stack, image_path, steps, card):
     """One SD-2.1 edit of the 1024 px image through the diffusion CLI's
     functions, at ``steps`` DDIM steps (the stack's schedule is replaced when
@@ -476,20 +583,18 @@ def diffusion_path_phase(args, stack, image_path, steps, card):
     if steps != args.num_steps:
         args = argparse.Namespace(**{**vars(args), "num_steps": steps})
         stack = stack._replace(pipe=dataclasses.replace(stack.pipe, sched=SCH.make_schedule(steps)))
-    adapter, manager = cli.make_adapter(stack, args.out_dir)
     gcfg, acfg = cli.make_configs(args)
     dtype = next(stack.pipe.unet.parameters()).dtype
 
     torch.cuda.reset_peak_memory_stats()
     FA.LAUNCHES_FWD = FA.LAUNCHES_BWD_DKV = FA.LAUNCHES_BWD_DQ = 0
     t0 = time.perf_counter()
-    outputs = cli.adapt_image(adapter, manager, image_path, gcfg, acfg, "a random image")
+    label, image, log = edit_one_image(args, stack, gcfg, acfg, image_path)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = (FA.LAUNCHES_FWD, FA.LAUNCHES_BWD_DKV, FA.LAUNCHES_BWD_DQ)
     peak = torch.cuda.max_memory_allocated()
 
-    log = adapter.last_log
     print(f"diffusion edit {dtype}: {steps} DDIM steps (the CLI's default is 50; nothing else "
           f"is cut), null-text inner steps per outer step {log.nto_inner_steps}")
     want_fwd, want_bwd = expected_flash_launches(steps, log.nto_inner_steps)
@@ -498,13 +603,12 @@ def diffusion_path_phase(args, stack, image_path, steps, card):
     check(counts == (want_fwd, want_bwd, want_bwd), "K2 launch counts differ from the derivation")
     check(min(counts) > 0, "a flash attention kernel was not launched in the diffusion edit")
 
-    (label, image), = outputs.items()
     check(image.shape == (1, DIFFUSION_SIZE, DIFFUSION_SIZE, 3), "edited image shape")
     check(bool(torch.isfinite(image).all()), "non-finite edited image")
     check(float(image.min()) >= 0.0 and float(image.max()) <= 1.0, "edited image outside [0, 1]")
     for name in ("latents", "noisy", "nto_embeds", "out_latents"):
         check(bool(torch.isfinite(log.tensors[name]).all()), f"non-finite {name}")
-    check(log.tensors["nto_embeds"].shape == (steps, 77, 1024), "null-text embeddings")
+    check(log.tensors["nto_embeds"].shape == (steps, 1, 77, 1024), "null-text embeddings")
     # Whatever the models' type, the null-text embeddings and their Adam
     # moments stay float32, as in the JAX package.
     for name in ("nto_embeds", "nto_adam_m", "nto_adam_v"):
@@ -520,7 +624,7 @@ def diffusion_path_phase(args, stack, image_path, steps, card):
           f"embeddings and Adam moments {log.tensors['nto_embeds'].dtype}, on {card}")
     print(f"  seconds per phase: {phases}; classifier-guidance gradient norms "
           + " ".join(f"{g:.3e}" for g in norms))
-    return counts, log.tensors["out_latents"].detach().float().cpu()
+    return counts, log.tensors["out_latents"].detach().float().cpu(), seconds, peak
 
 
 def card_against_cpu_phase(stack, rng):
@@ -659,7 +763,7 @@ def expected_sdxl_flash_launches():
 
 def sdxl_path_phase(device, image_path, card):
     """Phase 8: the SDXL edit in the CLI's type at ``--scale sdxl``, through
-    ``build_models`` and ``adapt_image``. Returns (the stack, the launch
+    ``build_models`` and ``adapt_batches``. Returns (the stack, the launch
     counts)."""
     from rgie_tpu_torch.cli import adapt_images as cli
     from rgie_tpu_torch.ops.kernels import flash_attention as FA
@@ -681,19 +785,17 @@ def sdxl_path_phase(device, image_path, card):
           f"timesteps {pipe.sigma_sched.timesteps.tolist()}), inverse table of "
           f"{pipe.sigma_sched_inv.num_inference_steps} steps after the dedup (timesteps "
           f"{pipe.sigma_sched_inv.timesteps.tolist()})")
-    adapter, manager = cli.make_adapter(stack, args.out_dir)
     gcfg, acfg = cli.make_configs(args, is_xl=True)
 
     torch.cuda.reset_peak_memory_stats()
     FA.LAUNCHES_FWD = FA.LAUNCHES_BWD_DKV = FA.LAUNCHES_BWD_DQ = 0
     t0 = time.perf_counter()
-    outputs = cli.adapt_image(adapter, manager, image_path, gcfg, acfg, "a random image")
+    label, image, log = edit_one_image(args, stack, gcfg, acfg, image_path)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = (FA.LAUNCHES_FWD, FA.LAUNCHES_BWD_DKV, FA.LAUNCHES_BWD_DQ)
     peak = torch.cuda.max_memory_allocated()
 
-    log = adapter.last_log
     print(f"SDXL edit {dtype}: {SDXL_STEPS} DPM steps (the CLI's default is 50; nothing else is "
           f"cut), null-text inner steps per outer step {log.nto_inner_steps}")
     want = expected_sdxl_flash_launches()
@@ -704,7 +806,6 @@ def sdxl_path_phase(device, image_path, card):
     check(FA.kernel_route("fwd", dtype, pipe.vae.cfg.block_out_channels[-1]) == "wide",
           "the SDXL VAE's attention is not on the wide route")
 
-    (label, image), = outputs.items()
     check(image.shape == (1, DIFFUSION_SIZE, DIFFUSION_SIZE, 3), "SDXL edited image shape")
     check(bool(torch.isfinite(image).all()), "non-finite SDXL edited image")
     check(float(image.min()) >= 0.0 and float(image.max()) <= 1.0,
@@ -712,9 +813,9 @@ def sdxl_path_phase(device, image_path, card):
     for name in ("latents", "noisy", "nto_embeds", "out_latents"):
         check(bool(torch.isfinite(log.tensors[name]).all()), f"non-finite SDXL {name}")
     ucfg = pipe.unet.cfg
-    check(log.tensors["nto_embeds"].shape == (SDXL_STEPS, 77, ucfg.cross_attention_dim),
+    check(log.tensors["nto_embeds"].shape == (SDXL_STEPS, 1, 77, ucfg.cross_attention_dim),
           "SDXL null-text embeddings")
-    added = adapter.added_cond_fn("a random image", "")
+    added = cli.make_adapter(stack).added_cond_fn("a random image", "")
     check(added.text_embeds.shape == (2, ucfg.addition_pooled_dim) and
           added.time_ids.shape == (2, 6), "SDXL added conditioning")
     check(bool(torch.isfinite(added.text_embeds).all()), "non-finite pooled embeddings")
@@ -841,6 +942,385 @@ def tiled_vae_phase(stack, rng):
           enc_card.shape == (1, hw, hw, 4), "tiled VAE shapes")
     check(e_dec <= 1e-4, "tiled VAE decode disagrees with the CPU")
     check(e_enc <= 1e-4, "tiled VAE encode disagrees with the CPU")
+
+
+def single_image_edit(pipe, image, empty, cfg_embeds, cond_embeds, alpha, num_inner_steps):
+    """One image's edit through the pipeline's single-image functions, as
+    ``ImageAdapter.revert_and_sample`` runs them. Returns (image, adapted
+    score, null-text embeddings)."""
+    from rgie_tpu_torch.models.midu import ValenceArousalMidu
+
+    t_last = int(pipe.sched.timesteps[-1])
+    clf = ValenceArousalMidu(model=pipe.midu_model)
+
+    def score(img):
+        with torch.no_grad():
+            _, mid = pipe._unet(pipe.encode_image(img), t_last, empty, None)
+            return clf.predict(mid)
+
+    reference = torch.clamp(score(image) + alpha, 0.0, 1.0)
+    noisy, pivots = pipe.reverse_sample(pipe.encode_image(image), empty)
+    nto = pipe.null_optimization(pivots, cond_embeds, empty, CFG_SCALE,
+                                 num_inner_steps=num_inner_steps)
+    lat = pipe.sample(noisy, cfg_embeds, guidance_scale=CFG_SCALE, guidance_clf_scale=CLF_SCALE,
+                      uncond_embeds_per_step=nto, midu_reference_value=reference)
+    edited = pipe.decode_latents(lat)
+    return edited, score(edited), nto
+
+
+def batched_equality_phase(args, stack, rng, card):
+    """Phase 14: float32 with TF32 off, the SD-2.1 stack of phase 4 at
+    ``BATCH_CHECK_STEPS`` steps: each row of a batched edit of ``BATCH`` 1024
+    px images against the single-image edit of its image, and ``--segment 1``
+    against the whole batched edit."""
+    import dataclasses
+
+    from rgie_tpu_torch.cli import adapt_images as cli
+    from rgie_tpu_torch.diffusion import schedulers as SCH
+    from rgie_tpu_torch.diffusion.batched import make_batched_edit
+    from rgie_tpu_torch.diffusion.pipeline import RunLog
+    from rgie_tpu_torch.diffusion.segmented import make_segmented_edit
+
+    t0 = time.perf_counter()
+    pipe = dataclasses.replace(stack.pipe, sched=SCH.make_schedule(BATCH_CHECK_STEPS))
+    adapter = cli.make_adapter(stack._replace(pipe=pipe))
+    gcfg, _ = cli.make_configs(args)
+    conds = cli.batch_conds(adapter, gcfg, [f"a random image {b}" for b in range(BATCH)])
+    empty = adapter.embeds_fn("", "")
+    images = torch.from_numpy(rng.uniform(0, 1, (BATCH, DIFFUSION_SIZE, DIFFUSION_SIZE, 3))
+                              .astype(np.float32)).to(pipe.device)
+    alphas = torch.full((BATCH, 2), REFERENCE_VALUE, device=pipe.device)
+    kw = dict(guidance_scale=CFG_SCALE, guidance_clf_scale=CLF_SCALE, use_nto=True,
+              use_reference=True, num_inner_steps=BATCH_CHECK_INNER)
+    log = RunLog()
+    whole = make_batched_edit(pipe, **kw)(images, empty, conds, alphas, log=log)
+    seg = make_segmented_edit(pipe, chunk_steps=1, **kw)(images, empty, conds, alphas)
+    errors = {"segmented image": rel_err(seg.edited, whole.edited),
+              "segmented score": rel_err(seg.adapted_score, whole.adapted_score)}
+    for b in range(BATCH):
+        edited, adapted, nto = single_image_edit(pipe, images[b:b + 1], empty,
+                                                 conds.cfg_embeds[b], conds.cond_embeds[b],
+                                                 alphas[b:b + 1], BATCH_CHECK_INNER)
+        errors[f"row {b} image"] = rel_err(whole.edited[b:b + 1], edited)
+        errors[f"row {b} score"] = rel_err(whole.adapted_score[b:b + 1], adapted)
+        errors[f"row {b} null-text embeddings"] = rel_err(log.tensors["nto_embeds"][:, b], nto)
+    print(f"batched edit, float32, {BATCH} images, {BATCH_CHECK_STEPS} DDIM steps, "
+          f"{BATCH_CHECK_INNER} inner steps (per image {log.nto_image_steps}), each row against "
+          f"its single-image edit and --segment 1 against the whole edit (of the largest entry; "
+          f"limit {BATCH_RTOL:g}): " + ", ".join(f"{k} {v:.3e}" for k, v in errors.items())
+          + f"; {time.perf_counter() - t0:.1f} s on {card}")
+    for what, err in errors.items():
+        check(err <= BATCH_RTOL, f"batched edit: {what} disagrees")
+    check(whole.edited.shape == (BATCH, DIFFUSION_SIZE, DIFFUSION_SIZE, 3), "batched edit shape")
+
+
+def training_cli_phase(work, card):
+    """Phase 15: the midu training CLI at --scale sd (SD-2.1 width, 512 px,
+    bfloat16 frozen models, random weights and images from the seed) for 2
+    steps at batch 8 and one validation batch. Returns the best checkpoint's
+    path."""
+    from rgie_tpu_torch.cli import train_guidance_clf
+
+    out = os.path.join(work, "midu_sd")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    train_guidance_clf.main(["--scale", "sd", "--epochs", "1", "--num-batches", "2",
+                             "--val-batches", "1", "--batch-size", "8", "--out-dir", out,
+                             "--device", "cuda", "--seed", "0"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    with open(os.path.join(out, "best_meta.json")) as f:
+        meta = json.load(f)
+    print(f"midu training CLI, --scale sd, 512 px, batch 8, 2 steps: {seconds:.1f} s (models made "
+          f"on the host included), best validation loss {meta['val_loss']:.5f} at step "
+          f"{meta['step']}; K1/K2 launches {launches} (512 px: the VAE attends over 4096 "
+          f"positions, below the gate); on {card}")
+    check(meta["step"] == 2 and np.isfinite(meta["val_loss"]), "midu training: checkpoint meta")
+    check(launches == (0, 0, 0, 0), f"midu training at 512 px launched K1/K2: {launches}")
+    return os.path.join(out, "best.pt")
+
+
+def load_checkpoint_phase(args, stack, path):
+    """The trained midu read into the SD edit by ``--midu-ckpt``'s loader
+    (``strict=True``)."""
+    from rgie_tpu_torch.cli import adapt_images as cli
+    from rgie_tpu_torch.utils.checkpoint import load_torch_state_dict
+
+    midu = stack.pipe.midu_model
+    cli.load_midu_checkpoint(midu, path)
+    saved, got = load_torch_state_dict(path), midu.state_dict()
+    check(sorted(saved) == sorted(got) and
+          all(torch.equal(saved[k].to(got[k].device), got[k]) for k in saved),
+          "the edit's midu differs from the trained checkpoint")
+
+
+def record_k2_shapes():
+    """Wrap the three launch functions to count the shapes they launch at;
+    returns (the counter, a function that unwraps them)."""
+    from collections import Counter
+
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+
+    shapes, saved = Counter(), {}
+    for name in ("_launch_fwd", "_launch_bwd_dkv", "_launch_bwd_dq"):
+        fn = saved[name] = getattr(FA, name)
+
+        def wrapped(q, *rest, _fn=fn, _name=name):
+            shapes[(_name.removeprefix("_launch_"), tuple(q.shape), str(q.dtype)[6:])] += 1
+            return _fn(q, *rest)
+
+        setattr(FA, name, wrapped)
+    return shapes, lambda: [setattr(FA, name, fn) for name, fn in saved.items()]
+
+
+def batched_path_phase(args, stack, work, rng, card, single_s, single_peak):
+    """Phase 16: the diffusion CLI's batched path (``adapt_batches``) at
+    ``--batch BATCH`` on a feed of random 1024 px JPEGs, the stack of phase 7
+    (bfloat16, its midu the one phase 15 trained) at ``BATCH_STEPS`` DDIM
+    steps. Returns the K2 launch counts."""
+    import argparse
+    import dataclasses
+
+    from PIL import Image
+
+    from rgie_tpu_torch.cli import adapt_images as cli
+    from rgie_tpu_torch.diffusion import schedulers as SCH
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+
+    feed = os.path.join(work, "feed")
+    os.makedirs(os.path.join(feed, "images"), exist_ok=True)
+    os.makedirs(os.path.join(feed, "annotations"), exist_ok=True)
+    for b in range(BATCH):
+        Image.fromarray((rng.uniform(0, 1, (DIFFUSION_SIZE, DIFFUSION_SIZE, 3)) * 255)
+                        .astype(np.uint8)).save(os.path.join(feed, "images", f"{b + 1:012d}.jpg"))
+    with open(os.path.join(feed, "annotations", "captions.json"), "w") as f:
+        json.dump({str(b + 1): f"a random image {b}" for b in range(BATCH)}, f)
+    out_dir = os.path.join(work, "out_batched")
+    args = argparse.Namespace(**{**vars(args), "batch": BATCH, "num_steps": BATCH_STEPS,
+                                 "segment": 0, "out_dir": out_dir})
+    stack = stack._replace(pipe=dataclasses.replace(stack.pipe,
+                                                    sched=SCH.make_schedule(BATCH_STEPS)))
+    adapter = cli.make_adapter(stack)
+    gcfg, acfg = cli.make_configs(args)
+
+    shapes, unwrap = record_k2_shapes()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    try:
+        (names, out, log, seconds), = cli.adapt_batches(args, stack, adapter,
+                                                        cli.feed_items(feed), gcfg, acfg,
+                                                        out_dir)
+        torch.cuda.synchronize()
+    finally:
+        unwrap()
+    counts = (FA.LAUNCHES_FWD, FA.LAUNCHES_BWD_DKV, FA.LAUNCHES_BWD_DQ)
+    peak = torch.cuda.max_memory_allocated()
+
+    print(f"batched edit, bfloat16, {BATCH} images: {BATCH_STEPS} DDIM steps, null-text inner "
+          f"steps per outer step and image {log.nto_image_steps}")
+    want_fwd, want_bwd = expected_flash_launches(BATCH_STEPS, log.nto_inner_steps)
+    print(f"  launches counted: forward {counts[0]}, dK/dV {counts[1]}, dQ {counts[2]}; expected "
+          f"{want_fwd}, {want_bwd}, {want_bwd} (the batch rides in each launch)")
+    print("  K2 shapes launched: " + "; ".join(f"{k} {shape} {dt} x{n}" for (k, shape, dt), n
+                                             in sorted(shapes.items())))
+    check(counts == (want_fwd, want_bwd, want_bwd), "batched K2 launch counts differ")
+    check(("fwd", BATCH_K2_SHAPES[0], "bfloat16") in shapes and
+          ("fwd", BATCH_K2_SHAPES[1], "bfloat16") in shapes,
+          "the batched edit did not launch the batch's shapes")
+    check(out.edited.shape == (BATCH, DIFFUSION_SIZE, DIFFUSION_SIZE, 3), "batched image shape")
+    check(bool(torch.isfinite(out.edited).all()), "non-finite batched images")
+    check(float(out.edited.min()) >= 0.0 and float(out.edited.max()) <= 1.0,
+          "batched images outside [0, 1]")
+    check(bool(torch.isfinite(out.orig_score).all() and torch.isfinite(out.adapted_score).all()),
+          "non-finite batched scores")
+    nto = log.tensors["nto_embeds"]
+    check(nto.shape == (BATCH_STEPS, BATCH, 77, 1024) and nto.dtype == torch.float32 and
+          bool(torch.isfinite(nto).all()), "batched null-text embeddings")
+    check(len(log.clf_grad_norms) == BATCH_STEPS and
+          all(n.shape == (BATCH,) and bool((n > 0).all()) for n in log.clf_grad_norms),
+          "batched classifier-guidance gradient norms")
+    for name in names:
+        check(os.path.exists(os.path.join(out_dir, gcfg.resolved_label(), name)),
+              f"saved batched image {name}")
+    phases = ", ".join(f"{k} {v:.3f}" for k, v in log.seconds.items())
+    print(f"batched edit, bfloat16: {seconds:.3f} s for {BATCH} 1024 px images at {BATCH_STEPS} "
+          f"steps = {seconds / BATCH:.3f} s an image, {BATCH / seconds:.4f} img/s, peak memory "
+          f"{peak / 2**30:.2f} GiB; the single edit of phase 7 at the same steps {single_s:.3f} "
+          f"s, {1 / single_s:.4f} img/s, peak {single_peak / 2**30:.2f} GiB; on {card}")
+    print(f"  seconds per phase: {phases}")
+    return counts
+
+
+def controlnet_phase(stack, rng, card):
+    """Phase 17: ControlNet at SD-2.1 width on phase 7's bfloat16 UNet, 1024
+    px, batch 2: forward and backward (to the latents and the control image)
+    of ``controlled_unet_apply``, kernel route against plain route; then
+    float32 copies on the card against the CPU at ``CN_CPU_SIZE`` px. Returns
+    the K2 launch counts of the kernel route."""
+    import copy
+
+    from rgie_tpu_torch.diffusion import unet as U
+    from rgie_tpu_torch.diffusion.controlnet import controlled_unet_apply, create_controlnet
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+
+    t0 = time.perf_counter()
+    unet = stack.pipe.unet
+    device, dtype, cfg = stack.pipe.device, unet.dtype, unet.cfg
+    cn = create_controlnet(torch.Generator().manual_seed(2), cfg)
+    with torch.no_grad():   # zero convolutions drawn away from zero: residuals with weight
+        g = torch.Generator().manual_seed(3)
+        for conv in [*cn.controlnet_down_blocks, cn.controlnet_mid_block,
+                     cn.controlnet_cond_embedding.conv_out]:
+            conv.weight.copy_(torch.randn(conv.weight.shape, generator=g) * 0.02)
+    cn_card = copy.deepcopy(cn).to(device, dtype)
+    build_s = time.perf_counter() - t0
+
+    def arr(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def run(u, c, lat, ctx, image, w, dev):
+        lat = lat.to(dev).requires_grad_(True)
+        image = image.to(dev).requires_grad_(True)
+        t = torch.tensor([500] * lat.shape[0], device=dev)
+        eps, mid = controlled_unet_apply(u, c, lat, t, ctx.to(dev), image)
+        ((eps.float() * w.to(dev)).sum() + mid.float().sum()).backward()
+        return [x.detach().float().cpu() for x in (eps, mid, lat.grad, image.grad)]
+
+    hw = DIFFUSION_SIZE // 8
+    inputs = (arr(2, hw, hw, 4), arr(2, 77, cfg.cross_attention_dim),
+              torch.from_numpy(rng.uniform(0, 1, (2, DIFFUSION_SIZE, DIFFUSION_SIZE, 3))
+                               .astype(np.float32)), arr(2, hw, hw, 4))
+    reset_kernel_launches()
+    t1 = time.perf_counter()
+    kernel = run(unet, cn_card, *inputs, device)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t1
+    counts = kernel_launches()[1:]
+    saved = U.flash_attention
+    U.flash_attention = lambda q, k, v, sm_scale: FA.plain_flash_attention(q, k, v, sm_scale)
+    try:
+        plain = run(unet, cn_card, *inputs, device)
+    finally:
+        U.flash_attention = saved
+    check(kernel_launches()[1:] == counts, "the plain route launched K2")
+    # Every self-attention site at 128 x 128 latents: the UNet's and the
+    # ControlNet's copies of the top down block; all of them depend on the
+    # latents, so each has a backward.
+    cn_sites = cfg.layers_per_block * cfg.transformer_layers_per_block[0]
+    sites = ATTENTION_SITES_UNET + cn_sites
+    errs = {name: rel_err(k, p) for name, k, p in zip(
+        ("eps", "mid features", "latents gradient", "control image gradient"), kernel, plain)}
+    print(f"ControlNet, SD-2.1 width, 1024 px, batch 2, {str(dtype)[6:]}: forward and backward of "
+          f"controlled_unet_apply in {kernel_s:.3f} s (ControlNet made in {build_s:.1f} s); K2 "
+          f"launches {counts}, expected {sites} each ({ATTENTION_SITES_UNET} UNet sites + "
+          f"{cn_sites} ControlNet sites); kernel route against plain route: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (limits {CN_OUT_TOL:g}, gradients {CN_GRAD_TOL:g}); on {card}")
+    check(counts == (sites, sites, sites), "ControlNet K2 launch counts differ from the derivation")
+    check(all(bool(torch.isfinite(x).all()) for x in kernel), "non-finite ControlNet outputs")
+    check(errs["eps"] <= CN_OUT_TOL and errs["mid features"] <= CN_OUT_TOL,
+          "ControlNet: kernel route disagrees with the plain route")
+    check(errs["latents gradient"] <= CN_GRAD_TOL and errs["control image gradient"] <= CN_GRAD_TOL,
+          "ControlNet: kernel route's gradients disagree with the plain route's")
+
+    # Card against CPU, float32 copies (the UNet's bfloat16 weights widened).
+    unet32, cn32 = copy.deepcopy(unet).cpu().float(), cn
+    hw = CN_CPU_SIZE // 8
+    small = (arr(1, hw, hw, 4), arr(1, 77, cfg.cross_attention_dim),
+             torch.from_numpy(rng.uniform(0, 1, (1, CN_CPU_SIZE, CN_CPU_SIZE, 3))
+                              .astype(np.float32)), arr(1, hw, hw, 4))
+    t1 = time.perf_counter()
+    on_card = run(copy.deepcopy(unet32).to(device), copy.deepcopy(cn32).to(device), *small, device)
+    on_cpu = run(unet32, cn32, *small, torch.device("cpu"))
+    errs = {name: rel_err(a, b) for name, a, b in zip(
+        ("eps", "mid features", "latents gradient", "control image gradient"), on_card, on_cpu)}
+    print(f"ControlNet card against CPU at {CN_CPU_SIZE} px, full width, float32 (of the largest "
+          f"entry; limit 1e-3): " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f"; {time.perf_counter() - t1:.1f} s")
+    for name, err in errs.items():
+        check(err <= 1e-3, f"ControlNet {name} disagrees with the CPU")
+    return counts
+
+
+def sdxl_training_phase(stack, card):
+    """Phase 18: midu training at SDXL width on phase 8's frozen UNet and VAE
+    (bfloat16), 1024 px, ``MIDU_STEPS`` steps at batch ``MIDU_BATCH`` through
+    the training CLI's ``features_and_labels`` and the train step; then one
+    float32 step on the card against the CPU on the same features and labels.
+    Returns the K2 launch counts of the steps."""
+    import copy
+
+    from rgie_tpu_torch.cli import train_guidance_clf as T
+    from rgie_tpu_torch.config import TrainGuidanceConfig
+    from rgie_tpu_torch.models.midu import create_midu
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+    from rgie_tpu_torch.training import create_train_state, make_train_step
+    from rgie_tpu_torch.training.clf_wrapper import create_teacher
+
+    pipe = stack.pipe
+    device, dtype = pipe.device, pipe.unet.dtype
+    g = torch.Generator().manual_seed(4)
+    teacher = create_teacher(g, dtype=dtype)
+    teacher.loss.to(device)
+    tstack = T.make_stack(pipe.unet, pipe.vae, teacher, DIFFUSION_SIZE)
+    midu = create_midu(g, is_sdxl=True, in_channels=pipe.unet.cfg.block_out_channels[-1])
+    midu0 = copy.deepcopy(midu)
+    cfg = TrainGuidanceConfig()
+    state, step = create_train_state(midu.to(device), cfg), make_train_step()
+    data = torch.Generator().manual_seed(5)
+    losses, times = [], []
+    reset_kernel_launches()
+    for i in range(MIDU_STEPS):
+        t0 = time.perf_counter()
+        images = torch.rand((MIDU_BATCH, DIFFUSION_SIZE, DIFFUSION_SIZE, 3),
+                            generator=data).to(device)
+        feats, labels = T.features_and_labels(tstack, data, images)
+        state, loss, _ = step(state, feats, labels)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    counts = kernel_launches()[1:]
+    route = FA.kernel_route("fwd", dtype, pipe.vae.cfg.block_out_channels[-1])
+    print(f"SDXL midu training, 1024 px, batch {MIDU_BATCH}, frozen models {str(dtype)[6:]}: "
+          f"losses {losses}, seconds per step {[round(t, 3) for t in times]} (the first "
+          f"includes warm-up); K2 launches {counts}, expected ({MIDU_STEPS}, 0, 0): the VAE "
+          f"encode's {route} forward, once per step; features {tuple(feats.shape)}; on {card}")
+    check(counts == (MIDU_STEPS, 0, 0) and route == "wide", "SDXL training K2 launches")
+    check(feats.shape == (MIDU_BATCH, 32, 32, 1280) and labels.shape == (MIDU_BATCH, 2),
+          "SDXL training features and labels")
+    check(all(np.isfinite(losses)), "non-finite SDXL training loss")
+
+    # One float32 step on the card and on the CPU from the same weights.
+    results = []
+    for dev in (device, torch.device("cpu")):
+        s = create_train_state(copy.deepcopy(midu0).to(dev), cfg)
+        s, loss, out = step(s, feats.to(dev), labels.to(dev))
+        results.append((float(loss), out.cpu(),
+                        torch.cat([p.grad.cpu().flatten() for p in s.model.parameters()]),
+                        torch.cat([p.detach().cpu().flatten() for p in s.model.parameters()])))
+    (l_card, o_card, g_card, p_card), (l_cpu, o_cpu, g_cpu, p_cpu) = results
+    p0 = torch.cat([p.detach().flatten() for p in midu0.parameters()])
+    # What Adam steps on: the gradient plus the L2 term. Where that is set by
+    # the gradient's rounding, the step's sign is not; elsewhere the steps agree.
+    g_eff = (g_cpu + cfg.weight_decay * p0).abs()
+    settled = g_eff > MIDU_SETTLED * g_eff.max()
+    apart = (p_card - p_cpu).abs()[settled]
+    e_step = float(apart.max())
+    # a hundredth of lr, plus one float32 rounding of the weight it lands on
+    within = bool((apart <= 1e-2 * cfg.learning_rate + p0.abs()[settled] * 2.0 ** -23).all())
+    print(f"SDXL midu train step, float32, card against CPU: loss {l_card:.7f} vs {l_cpu:.7f}, "
+          f"predictions {rel_err(o_card, o_cpu):.3e} and gradients {rel_err(g_card, g_cpu):.3e} "
+          f"of the largest entry; updates (lr {cfg.learning_rate:g}) at the "
+          f"{int(settled.sum())} of {p0.numel()} entries whose gradient is above "
+          f"{MIDU_SETTLED:g} of the largest differ by at most {e_step:.3e} (limit a hundredth "
+          f"of lr and a rounding); all entries by {float((p_card - p_cpu).abs().max()):.3e}")
+    check(abs(l_card - l_cpu) <= MIDU_RTOL * abs(l_cpu), "midu train step loss: card vs CPU")
+    check(rel_err(o_card, o_cpu) <= MIDU_RTOL, "midu train step predictions: card vs CPU")
+    check(rel_err(g_card, g_cpu) <= MIDU_RTOL, "midu train step gradients: card vs CPU")
+    check(float((p_cpu - p0)[settled].abs().min()) > 0.5 * cfg.learning_rate,
+          "midu train step: a settled entry did not move")
+    check(within, "midu train step updates: card vs CPU")
+    return counts
 
 
 def kernel_launches():
@@ -1162,9 +1642,13 @@ def main():
     Image.fromarray((rng.uniform(0, 1, (DIFFUSION_SIZE, DIFFUSION_SIZE, 3)) * 255)
                     .astype(np.uint8)).save(image_path)
     edit_args, stack = diffusion_models(device, image_path, "float32", FLOAT32_STEPS)
-    counts_f32, latents_f32 = diffusion_path_phase(edit_args, stack, image_path, FLOAT32_STEPS, card)
+    counts_f32, latents_f32, _, _ = diffusion_path_phase(edit_args, stack, image_path,
+                                                         FLOAT32_STEPS, card)
     card_against_cpu_phase(stack, rng)
     module_route_phase(stack, rng)
+    # ---- 14. the batched edit's rows against single-image edits, and the
+    # segmented edit against the whole one, in float32
+    batched_equality_phase(edit_args, stack, rng, card)
     del stack
     torch.cuda.empty_cache()
 
@@ -1173,13 +1657,24 @@ def main():
     check(next(stack.pipe.unet.parameters()).dtype == torch.bfloat16,
           "the diffusion CLI's default type at --scale sd is not bfloat16")
     module_route_phase(stack, rng)
-    _, latents_short = diffusion_path_phase(edit_args, stack, image_path, FLOAT32_STEPS, card)
+    _, latents_short, single_s, single_peak = diffusion_path_phase(edit_args, stack, image_path,
+                                                                   FLOAT32_STEPS, card)
     distance = float((latents_short - latents_f32).abs().max())
     print(f"bfloat16 edit against float32 edit, both {FLOAT32_STEPS} steps from seed 0: output "
           f"latents differ by at most {distance:.4f}, mean {float((latents_short - latents_f32).abs().mean()):.4f} "
           f"(float32 latents: largest entry {float(latents_f32.abs().max()):.4f}, mean magnitude "
           f"{float(latents_f32.abs().mean()):.4f}); recorded, not checked")
-    counts_bf16, _ = diffusion_path_phase(edit_args, stack, image_path, DIFFUSION_STEPS, card)
+    counts_bf16, _, _, _ = diffusion_path_phase(edit_args, stack, image_path, DIFFUSION_STEPS,
+                                                card)
+
+    # ---- 15-17. midu training at --scale sd through its CLI, its checkpoint
+    # read by the edit, the batched edit in bfloat16 and ControlNet, on the
+    # stack of phase 7
+    midu_path = training_cli_phase(work, card)
+    load_checkpoint_phase(edit_args, stack, midu_path)
+    counts_batch = batched_path_phase(edit_args, stack, work, rng, card, single_s, single_peak)
+    torch.cuda.empty_cache()
+    counts_cn = controlnet_phase(stack, rng, card)
     del stack
     torch.cuda.empty_cache()
 
@@ -1187,6 +1682,8 @@ def main():
     stack, counts_sdxl = sdxl_path_phase(device, image_path, card)
     sdxl_card_against_cpu_phase(stack, rng)
     tiled_vae_phase(stack, rng)
+    # ---- 18. midu training at SDXL width, 1024 px, on the same stack
+    counts_train = sdxl_training_phase(stack, card)
     del stack
     torch.cuda.empty_cache()
 
@@ -1197,9 +1694,12 @@ def main():
     gan_phase(device, card)
     torch.cuda.empty_cache()
     gan_card_against_cpu_phase(device, rng)
-    for entry, a, b, c in zip(k2_entries, counts_f32, counts_bf16, counts_sdxl):
-        entry["launches"] = a + b + c
-    k2_entries[0]["sdxl_launches"] = counts_sdxl[0]
+    paths = {"float32 edit": counts_f32, "bfloat16 edit": counts_bf16, "SDXL edit": counts_sdxl,
+             "batched edit": counts_batch, "ControlNet": counts_cn,
+             "SDXL midu training": counts_train}
+    for i, entry in enumerate(k2_entries):
+        entry["launches"] = sum(counts[i] for counts in paths.values())
+        entry["launches_by_path"] = {name: counts[i] for name, counts in paths.items()}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

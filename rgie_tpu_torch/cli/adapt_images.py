@@ -1,5 +1,5 @@
-"""Diffusion dataset editing CLI on PyTorch: port of the single-image branch
-of ``scripts/adapt_images.py`` (reference entry point ``src/adapt_images.py``).
+"""Diffusion dataset editing CLI on PyTorch: port of
+``scripts/adapt_images.py`` (reference entry point ``src/adapt_images.py``).
 
     python -m rgie_tpu_torch.cli.adapt_images --data-dir DIR --scale sd \\
         --input-size 1024 --device cuda
@@ -7,10 +7,11 @@ of ``scripts/adapt_images.py`` (reference entry point ``src/adapt_images.py``).
     python -m rgie_tpu_torch.cli.adapt_images --data-dir DIR --scale sdxl \
         --scheduler dpm --device cuda
 
-Iterates a captions dataset; per image: score the original through the midu
-regressor, VAE-encode, invert with the empty prompt (DDIM, or DPM-Solver++
-2M), optionally run the null-text optimization, resample with
-classifier-free plus midu classifier guidance, VAE-decode, save and rescore.
+Iterates a captions dataset ``--batch`` images at a time; per image: score
+the original through the midu regressor, VAE-encode, invert with the empty
+prompt (DDIM, or DPM-Solver++ 2M), optionally run the null-text
+optimization, resample with classifier-free plus midu classifier guidance,
+VAE-decode, rescore and save.
 
 Without ``--diffusers-dir`` (a local diffusers snapshot) every model is a
 random-weight stand-in drawn from ``--seed``: ``--scale tiny`` runs the whole
@@ -26,8 +27,16 @@ flash-attention CUDA kernels, and at ``--scale sd`` the UNet's top-level
 self-attention too; SDXL's UNet attends over 4096 positions or fewer, below
 the kernels' gate.
 
-``--batch > 1`` and ``--segment`` (the batched and segmented edits, slice
-C2c) are accepted and raise.
+Every batch size, the default 1 too, runs the batched edit
+(``diffusion/batched.py``): every UNet and VAE call takes the batch's images
+together, and each image's result is its single-image edit's. ``--segment
+K`` runs it in windows of K diffusion steps (``diffusion/segmented.py``),
+with the same results. Differences from the JAX CLI, on purpose: one image
+at a time goes through the same program (the JAX CLI runs its per-image
+adapter there and ignores ``--segment``), the last batch of a dataset is not
+padded to B images (the padding changes no image's result), and a batch runs
+on one device: there is no mesh and no multi-process launch until slice F
+(the CLI refuses one).
 """
 
 from __future__ import annotations
@@ -35,11 +44,11 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from rgie_tpu_torch.adapt.adapter import ImageAdapter, ImageScorer, OutputImageManager
+from rgie_tpu_torch.adapt.adapter import ImageAdapter, ImageScorer, cond_row, transform_image
 from rgie_tpu_torch.config import AdaptConfig, GuidanceConfig
 from rgie_tpu_torch.diffusion import schedulers as SCH
 from rgie_tpu_torch.diffusion.pipeline import InversionResamplingPipeline, SdxlCond
@@ -76,11 +85,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="alpha offset on the original VA (GuidanceConfig.reference_value)")
     ap.add_argument("--no-nto", action="store_true")
     ap.add_argument("--use-caption", action="store_true", default=True)
-    ap.add_argument("--batch", type=int, default=1, help="(slice C2c) > 1: the batched edit")
+    ap.add_argument("--batch", type=int, default=1,
+                    help="edit this many images at a time (diffusion/batched.py)")
     ap.add_argument("--remat", action="store_true",
                     help="recompute UNet activations on the differentiated paths (less "
                          "memory at the cost of one extra forward)")
-    ap.add_argument("--segment", type=int, default=0, metavar="K", help="(slice C2c)")
+    ap.add_argument("--segment", type=int, default=0, metavar="K",
+                    help="run the batched edit in windows of K diffusion steps chained from "
+                         "the host (diffusion/segmented.py); the results are "
+                         "the same")
     ap.add_argument("--remat-mode", choices=("call", "block"), default="block",
                     help="with --remat: 'block' recomputes each UNet res/attn block (peak = "
                          "boundaries + one block); 'call' wraps the whole UNet call")
@@ -97,15 +110,13 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def check_supported(args) -> None:
-    """Raise for the options that a later slice brings."""
-    later = [
-        (args.batch > 1, "--batch > 1", "slice C2c (diffusion/batched.py)"),
-        (args.segment > 0, "--segment", "slice C2c (diffusion/segmented.py)"),
-    ]
-    for asked, flag, slice_name in later:
-        if asked:
-            raise NotImplementedError(f"{flag} is not ported yet: it comes with {slice_name}")
+def load_midu_checkpoint(midu: torch.nn.Module, path: str) -> None:
+    """``--midu-ckpt``: a torch state dict under the reference's keys (what
+    ``cli/train_guidance_clf.py`` writes), loaded with ``strict=True``."""
+    from rgie_tpu_torch.utils.checkpoint import load_torch_state_dict
+
+    midu.load_state_dict(load_torch_state_dict(path), strict=True)
+    print(f"loaded midu classifier from {path}")
 
 
 class EditStack(NamedTuple):
@@ -147,7 +158,6 @@ def build_models(args, generator: torch.Generator, device: torch.device) -> Edit
     with the schedules of ``--num-steps`` and ``--scheduler``."""
     from rgie_tpu_torch.models.midu import create_midu
 
-    check_supported(args)
     if args.scale == "tiny":
         input_size = args.input_size or 64
         unet_cfg, vae_cfg = UNetConfig.tiny(), VaeConfig.tiny()
@@ -197,10 +207,7 @@ def build_models(args, generator: torch.Generator, device: torch.device) -> Edit
         vae = create_vae(generator, vae_cfg, dtype=dtype)
     midu = create_midu(generator, is_sdxl=is_xl, in_channels=unet_cfg.block_out_channels[-1])
     if args.midu_ckpt and os.path.exists(args.midu_ckpt):
-        from rgie_tpu_torch.utils.checkpoint import load_torch_state_dict
-
-        midu.load_state_dict(load_torch_state_dict(args.midu_ckpt), strict=True)
-        print(f"loaded midu classifier from {args.midu_ckpt}")
+        load_midu_checkpoint(midu, args.midu_ckpt)
     # The text towers and every embedding stay float32 whatever --dtype says,
     # as in the JAX package (a bfloat16 UNet with float32 embedding masters):
     # null-text optimization's Adam steps (lr 1e-2 for SD) are at or below one
@@ -234,8 +241,8 @@ def build_models(args, generator: torch.Generator, device: torch.device) -> Edit
     return EditStack(pipe=pipe, prompt_encoder=prompt_encoder, input_size=input_size)
 
 
-def make_adapter(stack: EditStack, out_dir: str):
-    """The scorer, the output manager and the per-image adapter over a stack."""
+def make_adapter(stack: EditStack) -> ImageAdapter:
+    """The prompt encoders of an edit over a stack, with its scorer."""
     enc, size = stack.prompt_encoder, stack.input_size
     added_cond_fn = None
     if stack.pipe.is_xl:
@@ -258,11 +265,8 @@ def make_adapter(stack: EditStack, out_dir: str):
             return enc.encode_sd(prompt, negative, do_cfg=True)
 
     scorer = ImageScorer(pipe=stack.pipe, embeds_fn=embeds_fn, added_cond_fn=added_cond_fn)
-    manager = OutputImageManager(scorer=scorer, output_path=out_dir)
-    adapter = ImageAdapter(pipe=stack.pipe, scorer=scorer, embeds_fn=embeds_fn,
-                           cfg_embeds_fn=cfg_embeds_fn, added_cond_fn=added_cond_fn,
-                           input_size=size)
-    return adapter, manager
+    return ImageAdapter(pipe=stack.pipe, scorer=scorer, embeds_fn=embeds_fn,
+                        cfg_embeds_fn=cfg_embeds_fn, added_cond_fn=added_cond_fn)
 
 
 def make_configs(args, is_xl: bool = False):
@@ -275,34 +279,122 @@ def make_configs(args, is_xl: bool = False):
     return gcfg, acfg
 
 
-def adapt_image(adapter: ImageAdapter, manager: OutputImageManager, image_path: str,
-                gcfg: GuidanceConfig, acfg: AdaptConfig, caption: str = ""):
-    """One image of the CLI: ``ImageAdapter.adapt`` from the file at
-    ``image_path`` (score, invert, optimize, resample, decode, save, rescore).
-    Returns ``{label: image (1, H, W, 3) in [0, 1]}``."""
-    return adapter.adapt(image_path, gcfg, manager, acfg.resolved_end_iteration(), caption)
+def make_batched_program(args, pipe: InversionResamplingPipeline, gcfg: GuidanceConfig,
+                         acfg: AdaptConfig):
+    """The batched edit of ``--batch`` images, in windows of ``--segment``
+    steps when that is set."""
+    from rgie_tpu_torch.diffusion.batched import make_batched_edit
+    from rgie_tpu_torch.diffusion.segmented import make_segmented_edit
+
+    kwargs = dict(guidance_scale=gcfg.cfg_scale, guidance_clf_scale=gcfg.clf_scale,
+                  use_nto=gcfg.is_nto, use_reference=gcfg.reference_value is not None,
+                  end_iteration=acfg.resolved_end_iteration(), midu_is_minimized=not gcfg.max)
+    if args.segment > 0:
+        return make_segmented_edit(pipe, chunk_steps=args.segment, **kwargs)
+    return make_batched_edit(pipe, **kwargs)
+
+
+def batch_conds(adapter: ImageAdapter, gcfg: GuidanceConfig, captions: Sequence[str]):
+    """The per-image conditioning of a batch (``BatchedConds``) from each
+    image's caption: the CFG pair of the guidance prompt, the caption's
+    embeddings for null-text optimization and, for SDXL, their added conds."""
+    from rgie_tpu_torch.diffusion.batched import BatchedConds, stack_conds
+
+    per_image = []
+    for caption in captions:
+        prompt = gcfg.prompt if not gcfg.use_caption else (caption + " " + gcfg.prompt)
+        added_cfg = added_cond = added_uncond = None
+        if adapter.pipe.is_xl:
+            added_cfg = adapter.added_cond_fn(prompt, gcfg.negative_prompt)
+            both = adapter.added_cond_fn(caption, "")
+            added_uncond, added_cond = cond_row(both, 0), cond_row(both, 1)
+        per_image.append(BatchedConds(
+            cfg_embeds=adapter.cfg_embeds_fn(prompt, gcfg.negative_prompt),
+            cond_embeds=adapter.embeds_fn(caption, ""), added_cfg=added_cfg,
+            added_cond=added_cond, added_uncond=added_uncond))
+    return stack_conds(per_image)
+
+
+def feed_items(data_dir: str, limit: Optional[int] = None) -> List[Tuple[str, str, str]]:
+    """(name, image path, first caption) of a captions feed's first ``limit``
+    images (all without a limit)."""
+    from rgie_tpu_torch.data import CaptionFeedDataset, first_caption
+
+    dataset = CaptionFeedDataset(data_dir)
+    n = len(dataset) if limit is None else min(limit, len(dataset))
+    items = []
+    for i in range(n):
+        _, (name, path, captions) = dataset[i]
+        items.append((name, path, first_caption(captions)))
+    return items
+
+
+def adapt_batches(args, stack: EditStack, adapter: ImageAdapter,
+                  items: Sequence[Tuple[str, str, str]], gcfg: GuidanceConfig, acfg: AdaptConfig,
+                  out_dir: str) -> List[tuple]:
+    """Edit ``items``, (name, image path, caption) each, ``--batch`` at a time
+    (the last batch holds what is left: it is not padded). Per image: its
+    name, both scores, the reconstruction error and its JPEG under
+    ``out_dir/<label>/``; per batch one timing line. Returns, per batch,
+    (names, ``BatchedEditOutputs``, ``RunLog``, seconds)."""
+    import numpy as np
+    from PIL import Image
+
+    from rgie_tpu_torch.data.dataset import load_image_rgb
+    from rgie_tpu_torch.diffusion.pipeline import RunLog
+
+    pipe, scorer = stack.pipe, adapter.scorer
+    program = make_batched_program(args, pipe, gcfg, acfg)
+    label = gcfg.resolved_label()
+    out_sub = os.path.join(out_dir, label)
+    os.makedirs(out_sub, exist_ok=True)
+    empty = adapter.embeds_fn("", "")
+    added_empty = None
+    if pipe.is_xl:
+        added_empty = cond_row(adapter.added_cond_fn("", ""), 1)
+
+    n, done = len(items), []
+    for start in range(0, n, args.batch):
+        batch = items[start:start + args.batch]
+        names = [name for name, _, _ in batch]
+        images = torch.stack([transform_image(load_image_rgb(path), stack.input_size)[0]
+                              for _, path, _ in batch]).to(pipe.device)
+        conds = batch_conds(adapter, gcfg, [caption for _, _, caption in batch])
+        alphas = torch.full((len(batch), 2), gcfg.reference_value or 0.0, device=pipe.device)
+
+        log = RunLog()
+        t0 = time.perf_counter()
+        out = program(images, empty, conds, alphas, added_empty, log=log)
+        edited = out.edited.cpu()
+        dt = time.perf_counter() - t0
+        orig, adapted = out.orig_score.cpu().numpy(), out.adapted_score.cpu().numpy()
+        for b, name in enumerate(names):
+            print(f"[ {start + b + 1} / {n} ]: {name}\n")
+            scorer.print_score(orig[b:b + 1], "original")
+            scorer.print_score(adapted[b:b + 1], "adapted", orig[b:b + 1])
+            rec = scorer.rec_error(images[b].cpu(), edited[b])
+            print("Reconstruction error: {:.4f}".format(rec))
+            arr = np.clip(edited[b].numpy() * 255, 0, 255).astype(np.uint8)
+            Image.fromarray(arr).save(os.path.join(out_sub, f"{name.replace('.jpg', '')}.jpg"))
+        print(f"[{label}] batch of {len(batch)} edited in {dt:.2f}s ({len(batch) / dt:.3f} img/s)")
+        done.append((names, out, log, dt))
+    return done
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    from rgie_tpu_torch.device import resolve_device
+    from rgie_tpu_torch.device import require_single_process, resolve_device
 
     device = resolve_device(args.device)
+    require_single_process("the diffusion CLI")
 
     from rgie_tpu_torch.config import DATA_DIR, OUT_DIR
-    from rgie_tpu_torch.data import CaptionFeedDataset, first_caption
 
     stack = build_models(args, torch.Generator().manual_seed(args.seed), device)
-    adapter, manager = make_adapter(stack, args.out_dir or str(OUT_DIR / "adapt_images"))
     gcfg, acfg = make_configs(args, stack.pipe.is_xl)
-
-    dataset = CaptionFeedDataset(args.data_dir or str(DATA_DIR))
-    n = len(dataset) if args.limit is None else min(args.limit, len(dataset))
-    for i in range(n):
-        _, (name, path, captions) = dataset[i]
-        print(f"[ {i + 1} / {n} ]: {name}\n")
-        adapt_image(adapter, manager, path, gcfg, acfg, first_caption(captions))
-
+    adapt_batches(args, stack, make_adapter(stack), feed_items(args.data_dir or str(DATA_DIR),
+                                                               args.limit),
+                  gcfg, acfg, args.out_dir or str(OUT_DIR / "adapt_images"))
 
 if __name__ == "__main__":
     main()

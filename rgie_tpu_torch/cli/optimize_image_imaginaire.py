@@ -55,16 +55,6 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def require_single_process() -> None:
-    """Refuse a multi-process launch instead of editing every image once per
-    process: sharding the feed over processes is slice F's."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    jax_style = int(os.environ.get("RGIE_NUM_PROCESSES", "1"))
-    if world > 1 or jax_style > 1 or os.environ.get("RGIE_COORDINATOR"):
-        raise RuntimeError("multi-process runs of the MUNIT edit are not ported yet: they come "
-                           "with the multi-device slice F (rgie_tpu/parallel)")
-
-
 def build_models(args, generator: torch.Generator, device: torch.device) -> GE.GanEditModels:
     """The VA loss on [-1, 1] images, MUNIT's domain-a autoencoder and (with
     ``--weight-dis``) its discriminator: checkpoints where the paths exist,
@@ -107,10 +97,10 @@ def make_config(args) -> GanEditConfig:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    from rgie_tpu_torch.device import resolve_device
+    from rgie_tpu_torch.device import require_single_process, resolve_device
 
     device = resolve_device(args.device)
-    require_single_process()
+    require_single_process("the MUNIT edit")
 
     from PIL import Image
 

@@ -153,3 +153,19 @@ class GuidanceConfig:
 
     def resolved_label(self) -> str:
         return self.label if self.label is not None else f"CG_CFG_{self.cfg_scale:g}_{self.clf_scale:g}"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainGuidanceConfig:
+    """Guidance-regressor training (reference: src/clf/train_guidance_clf.py:42-176)."""
+
+    setting: str = "va"           # va | valence | arousal
+    input_type: str = "midu"      # midu | latents
+    is_sdxl: bool = False
+    image_size: int = 512
+    batch_size: int = 8
+    learning_rate: float = 1e-5
+    weight_decay: float = 5e-5
+    num_epochs: int = 100
+    num_train_timesteps: int = 1000
+    seed: int = 0

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -52,15 +53,37 @@ class SdxlCond(NamedTuple):
 @dataclasses.dataclass
 class RunLog:
     """What one edit did, for callers that check or time it: the inner Adam
-    steps each null-text outer step ran, the norm of each classifier-guidance
-    gradient (0-dim tensors, left on their device), the seconds per phase and
-    the intermediate tensors of the last edit (among them the Adam moments of
-    the last null-text outer step, ``nto_adam_m`` and ``nto_adam_v``)."""
+    steps each null-text outer step ran (for a batch, the loop's iterations:
+    the most any image ran), each image's own count per outer step, the norms
+    of each classifier-guidance gradient (one per image, left on their
+    device), the seconds per phase and the intermediate tensors of the last
+    edit (among them the Adam moments of the last null-text outer step,
+    ``nto_adam_m`` and ``nto_adam_v``)."""
 
     nto_inner_steps: List[int] = dataclasses.field(default_factory=list)
+    nto_image_steps: List[List[int]] = dataclasses.field(default_factory=list)
     clf_grad_norms: List[torch.Tensor] = dataclasses.field(default_factory=list)
     seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     tensors: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+
+class PhaseClock:
+    """Adds the seconds since the previous lap to ``log.seconds[name]``, after
+    waiting for the device so that a phase is charged its own work."""
+
+    def __init__(self, device: torch.device, log: RunLog):
+        self.device, self.log = device, log
+        self.last = self._now()
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = self._now()
+        self.log.seconds[name] = self.log.seconds.get(name, 0.0) + now - self.last
+        self.last = now
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,6 +153,21 @@ class InversionResamplingPipeline:
         else:
             lat = self.vae.encode(x, generator)
         return lat.float()
+
+    @torch.no_grad()
+    def score(self, images: torch.Tensor, empty_embeds: torch.Tensor,
+              added_empty: Optional[SdxlCond] = None) -> torch.Tensor:
+        """The midu's VA of ``images`` (B, H, W, 3) in [0, 1]: VAE-encode, the
+        UNet's mid block at the last timestep under the empty-prompt
+        embeddings (one row, shared by the batch), the midu (reference:
+        src/adapt_images/scoring.py:7-24). Returns (B, num_outputs)."""
+        b = images.shape[0]
+        added = None
+        if added_empty is not None:
+            added = SdxlCond(*(x.expand(b, -1) for x in added_empty))
+        _, mid = self._unet(self.encode_image(images), int(self.sched.timesteps[-1]),
+                            empty_embeds.expand(b, -1, -1), added)
+        return ValenceArousalMidu(model=self.midu_model).predict(mid)
 
     def _vae_stride(self) -> int:
         return self.vae_tile_stride or max((self.vae_tile * 3) // 4, 1)
@@ -218,7 +256,9 @@ class InversionResamplingPipeline:
         sample, ...StableDiffusionPipeline.py:51-145). ``prompt_embeds`` is
         (2, L, D) [uncond; cond] when guidance_scale > 1 else (1, L, D).
         ``uncond_embeds_per_step`` (S, L, D) substitutes the null-text
-        embeddings (:108-109)."""
+        embeddings (:108-109). For a batch of B latents, ``prompt_embeds`` is
+        (2B, L, D), B uncond rows then B cond rows, and
+        ``uncond_embeds_per_step`` (S, B, L, D)."""
         ts, next_ts, steps = self.sample_tables(start_iteration)
         lat, _ = self.sample_steps(
             latents, SCH.dpm_init_state(latents.shape, latents.dtype, latents.device),
@@ -256,18 +296,22 @@ class InversionResamplingPipeline:
         """Guided sampling over an explicit step window (a slice of
         ``sample_tables``); ``i_vals`` are GLOBAL step indices (they index
         ``uncond_embeds_per_step`` and the sigma tables). Returns (latents,
-        dpm_state) so a caller can chain windows."""
+        dpm_state) so a caller can chain windows. Each of the B latents is
+        guided by its own rows: the CFG pair is [latents; latents] against
+        ``prompt_embeds``' B uncond and B cond rows, and the classifier
+        gradient is normalized per image."""
         use_sigma = self._use_sigma(self.sigma_sched)
         do_cfg = guidance_scale > 1.0
         do_clf = self.midu_model is not None and guidance_clf_scale > 0.0
         lat = latents
+        b = lat.shape[0]
 
         # Classifier guidance runs single-latent UNet passes with the UNCOND
-        # conditioning row (the reference uses prompt_embeds[0],
+        # conditioning rows (the reference uses prompt_embeds[0],
         # ...StableDiffusionPipeline.py:130).
         added_uncond = None
         if added is not None:
-            added_uncond = SdxlCond(added.text_embeds[0:1], added.time_ids[0:1])
+            added_uncond = SdxlCond(added.text_embeds[:b], added.time_ids[:b])
         clf = None
         if do_clf:
             clf = ValenceArousalMidu(model=self.midu_model, is_minimized=midu_is_minimized,
@@ -277,7 +321,7 @@ class InversionResamplingPipeline:
             if do_cfg:
                 embeds = prompt_embeds
                 if uncond_embeds_per_step is not None:
-                    embeds = torch.cat([uncond_embeds_per_step[i][None], embeds[1:]], dim=0)
+                    embeds = torch.cat([_step_rows(uncond_embeds_per_step, i), embeds[b:]], dim=0)
                 eps_pair, _ = self._unet(torch.cat([lat, lat], dim=0), t, embeds, added)
                 eps_u, eps_c = eps_pair.chunk(2, dim=0)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)
@@ -286,7 +330,7 @@ class InversionResamplingPipeline:
             else:
                 added_cond = None
                 if added is not None:
-                    added_cond = SdxlCond(added.text_embeds[-1:], added.time_ids[-1:])
+                    added_cond = SdxlCond(added.text_embeds[-b:], added.time_ids[-b:])
                 eps, _ = self._unet(lat, t, prompt_embeds, added_cond)
 
             if use_sigma:
@@ -299,17 +343,21 @@ class InversionResamplingPipeline:
             if do_clf:
                 # Classifier guidance on the POST-step latents, gradient
                 # normalized (reference :126-142). Uncond row of the embeds.
-                uncond = prompt_embeds[0:1] if do_cfg else prompt_embeds
+                uncond = prompt_embeds[:b] if do_cfg else prompt_embeds
                 if uncond_embeds_per_step is not None and do_cfg:
-                    uncond = uncond_embeds_per_step[i][None]
+                    uncond = _step_rows(uncond_embeds_per_step, i)
                 with torch.enable_grad():
                     lat_in = lat.detach().requires_grad_(True)
                     _, mid = self._unet(lat_in, t, uncond, added_uncond)
+                    # The score sums over the images, so each image's
+                    # gradient is its own.
                     (grad,) = torch.autograd.grad(clf.score(mid), lat_in)
+                norms = torch.linalg.vector_norm(grad, dim=tuple(range(1, grad.ndim)),
+                                                 keepdim=True)
                 if log is not None:
-                    log.clf_grad_norms.append(torch.linalg.vector_norm(grad))
+                    log.clf_grad_norms.append(norms.reshape(b))
                 if self.normalize_gradient:
-                    grad = grad / (torch.linalg.vector_norm(grad) + 1e-10)
+                    grad = grad / (norms + 1e-10)
                 lat = lat - guidance_clf_scale * grad
         return lat, dpm_state
 
@@ -324,7 +372,7 @@ class InversionResamplingPipeline:
         """Per-timestep Adam on the uncond embeddings so CFG sampling follows
         the inversion pivots (reference: _null_optimization, pipeline.py:124-219).
         pivot_latents: (S+1, 1, h, w, 4) from reverse_sample. Returns
-        (S, L, D) optimized uncond embeddings.
+        (S, L, D) optimized uncond embeddings ((S, B, L, D) for B images).
 
         Per the reference: outer step i uses pivot pair (x_cur from the top,
         x_prev one below), lr = base_lr * (1 - i/100), inner early stop at
@@ -349,14 +397,16 @@ class InversionResamplingPipeline:
                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The null-text inner objective and its gradient with respect to the
         uncond embeddings: the mean squared distance between the CFG DDIM step
-        from ``lat_cur`` and the inversion pivot ``lat_prev``."""
+        from ``lat_cur`` and the inversion pivot ``lat_prev``, one loss per
+        image (B,). Their sum is differentiated, so each image's embeddings
+        get the gradient of their own loss."""
         with torch.enable_grad():
             u = uncond.detach().requires_grad_(True)
             eps_u, _ = self._unet(lat_cur, t, u, added_uncond)
             eps = eps_u + guidance_scale * (eps_cond - eps_u)
             rec = SCH.ddim_step(self.sched, eps, t, lat_cur)
-            loss = torch.mean((rec - lat_prev) ** 2)
-            (grad,) = torch.autograd.grad(loss, u)
+            loss = torch.mean((rec - lat_prev) ** 2, dim=tuple(range(1, rec.ndim)))
+            (grad,) = torch.autograd.grad(loss.sum(), u)
         return loss.detach(), grad
 
     @torch.no_grad()
@@ -375,7 +425,15 @@ class InversionResamplingPipeline:
         type of ``uncond`` (float32 from the CLI's text tower, whatever the
         UNet's type: the UNet casts its context on entry and the gradient
         comes back in float32). Returns (lat_cur, uncond, uncond_list
-        (K, ...))."""
+        (K, ...)).
+
+        For B images (``lat_cur`` (B, h, w, c), ``uncond`` and
+        ``cond_embeds`` (B, L, D), the added conds B rows each) every image
+        keeps its own early stop: the inner loop runs while any image's
+        condition holds, and an image that has stopped keeps its embeddings
+        and Adam moments (the JAX package's vmapped ``while_loop``). An image
+        still running has run every iteration, so Adam's step count is the
+        loop's."""
         ts = self.sched.timesteps.tolist()
         base_lr = 1e-1 if self.is_xl else 1e-2
         b1, b2, adam_eps = 0.9, 0.999, 1e-8
@@ -387,23 +445,36 @@ class InversionResamplingPipeline:
             lr = base_lr * (1.0 - i / 100.0)
             thresh = epsilon + i * 2e-5
 
-            # The reference's hand-written Adam with the early stop: the loop
-            # runs while the loss of the PREVIOUS evaluation is at or above
+            # The reference's hand-written Adam with the early stop: an image
+            # runs while the loss of its PREVIOUS evaluation is at or above
             # the threshold, starting from infinity.
             u = uncond
             m, v = torch.zeros_like(u), torch.zeros_like(u)
-            j, loss = 0, math.inf
-            while j < num_inner_steps and loss >= thresh:
+            running = [True] * u.shape[0]
+            image_steps = [0] * u.shape[0]
+            j = 0
+            while j < num_inner_steps and any(running):
                 loss_t, g = self.null_inner_loss_and_grad(u, lat_cur, t, eps_cond, lat_prev,
                                                           guidance_scale, added_uncond)
-                m = b1 * m + (1 - b1) * g
-                v = b2 * v + (1 - b2) * g * g
-                mh = m / -math.expm1((j + 1) * math.log(b1))
-                vh = v / -math.expm1((j + 1) * math.log(b2))
-                u = u - lr * mh / (torch.sqrt(vh) + adam_eps)
-                j, loss = j + 1, float(loss_t)
+                m_new = b1 * m + (1 - b1) * g
+                v_new = b2 * v + (1 - b2) * g * g
+                mh = m_new / -math.expm1((j + 1) * math.log(b1))
+                vh = v_new / -math.expm1((j + 1) * math.log(b2))
+                u_new = u - lr * mh / (torch.sqrt(vh) + adam_eps)
+                if all(running):
+                    u, m, v = u_new, m_new, v_new
+                else:
+                    keep = torch.tensor(running, device=u.device).view(-1, *[1] * (u.ndim - 1))
+                    u, m, v = (torch.where(keep, new, old) for new, old in
+                               ((u_new, u), (m_new, m), (v_new, v)))
+                j += 1
+                for row, loss in enumerate(loss_t.tolist()):
+                    if running[row]:
+                        image_steps[row] = j
+                        running[row] = loss >= thresh
             if log is not None:
                 log.nto_inner_steps.append(j)
+                log.nto_image_steps.append(image_steps)
                 log.tensors.update(nto_adam_m=m, nto_adam_v=v)
             uncond = u
 
@@ -420,6 +491,13 @@ class InversionResamplingPipeline:
             lat_cur = SCH.ddim_step(self.sched, eps, t, lat_cur)
             uncond_list.append(uncond)
         return lat_cur, uncond, torch.stack(uncond_list)
+
+
+def _step_rows(uncond_embeds_per_step: torch.Tensor, i: int) -> torch.Tensor:
+    """Step ``i``'s null-text embeddings as (B, L, D) rows: from (S, L, D)
+    (one image) or (S, B, L, D)."""
+    rows = uncond_embeds_per_step[i]
+    return rows[None] if rows.ndim == 2 else rows
 
 
 def rescale_noise_cfg(noise_cfg: torch.Tensor, noise_pred_text: torch.Tensor,

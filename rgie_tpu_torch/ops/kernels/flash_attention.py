@@ -74,6 +74,9 @@ KERNELS = tuple(name.removeprefix("flash_attention_") for name in KERNEL_SOURCES
 #: Sequences at least this long take the flash path (self-attention only).
 MIN_FLASH_SEQ_LEN = 8192
 MAX_HEAD_WIDTH = 512
+#: The kernels launch one block row per (batch, head) pair, in a grid
+#: dimension of at most this many blocks.
+MAX_BATCH_HEADS = 65535
 
 
 def head_width_supported(width: int) -> bool:
@@ -353,8 +356,9 @@ def _check_inputs(q, k, v) -> None:
     if not head_width_supported(q.shape[-1]):
         raise ValueError(f"flash_attention kernels take head widths that are multiples of 4 up "
                          f"to {MAX_HEAD_WIDTH}, got {q.shape[-1]}")
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError("flash_attention kernels take at most 65535 (batch, head) pairs")
+    if q.shape[0] * q.shape[1] > MAX_BATCH_HEADS:
+        raise ValueError(f"flash_attention kernels take at most {MAX_BATCH_HEADS} (batch, head) "
+                         "pairs")
 
 
 class _FlashAttention(torch.autograd.Function):

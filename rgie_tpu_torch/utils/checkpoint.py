@@ -1,13 +1,17 @@
-"""Reading torch checkpoint files for the port's modules: plain state
-dicts, and imaginaire's MUNIT checkpoint with its spectral norms folded into
-the kernels (the port's own copies of ``realize_spectral_norm`` and
-``filter_imaginaire_states`` of ``rgie_tpu/utils/torch_convert.py``)."""
+"""Torch checkpoint files for the port's modules: reading plain state dicts,
+and imaginaire's MUNIT checkpoint with its spectral norms folded into the
+kernels (the port's own copies of ``realize_spectral_norm`` and
+``filter_imaginaire_states`` of ``rgie_tpu/utils/torch_convert.py``);
+writing the best midu of a training run (``BestCheckpointer``)."""
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Dict, Mapping, Optional
 
 import torch
+import torch.nn as nn
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -96,3 +100,29 @@ def load_munit_checkpoint(path: str, cfg, weight_dis: float = 0.0):
         dis.load_state_dict(dis_sd, strict=True)
         dis = freeze_(dis)
     return freeze_(gen), dis
+
+
+class BestCheckpointer:
+    """Best-validation-loss checkpointing (the reference's gate,
+    train_guidance_clf.py:296-318). The JAX package writes an orbax tree; the
+    port writes, as the reference does, the model's ``state_dict`` with
+    ``torch.save`` (``best.pt``, the midu under the reference's keys: convs
+    at 0, 3, ...), which ``load_torch_state_dict`` and the diffusion CLI's
+    ``--midu-ckpt`` read back with ``strict=True``."""
+
+    def __init__(self, directory: str):
+        self.directory = Path(directory)
+        self.directory.mkdir(parents=True, exist_ok=True)
+        self.best_loss = float("inf")
+        self.best_path: Optional[str] = None
+
+    def maybe_save(self, val_loss: float, model: nn.Module, step: int) -> bool:
+        if val_loss < self.best_loss:
+            self.best_loss = val_loss
+            path = self.directory / "best.pt"
+            torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+            self.best_path = str(path)
+            with open(self.directory / "best_meta.json", "w") as f:
+                json.dump({"val_loss": val_loss, "step": step}, f)
+            return True
+        return False

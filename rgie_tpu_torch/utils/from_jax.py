@@ -215,6 +215,47 @@ def unet_state_dict(flax_variables: Mapping[str, Any], cfg) -> Dict[str, torch.T
     return sd
 
 
+def controlnet_state_dict(flax_variables: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """{'params'} of ``rgie_tpu.diffusion.controlnet.ControlNet`` -> the
+    port's ``ControlNet`` state dict (diffusers' ``ControlNetModel`` names):
+    the copied down and mid blocks as in ``unet_state_dict``, the conditioning
+    embedding's ``block_{k}`` convs as ``blocks.{k}``, the zero convs
+    ``zero_conv_{i}`` / ``zero_conv_mid`` as ``controlnet_down_blocks.{i}`` /
+    ``controlnet_mid_block``."""
+    p = flax_variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    _put_conv(sd, "conv_in", p["conv_in"])
+    _put_linear(sd, "time_embedding.linear_1", p["time_embed_0"])
+    _put_linear(sd, "time_embedding.linear_2", p["time_embed_2"])
+    if cfg.addition_embed_type == "text_time":
+        _put_linear(sd, "add_embedding.linear_1", p["add_embed_0"])
+        _put_linear(sd, "add_embedding.linear_2", p["add_embed_2"])
+    emb = p["cond_embedding"]
+    _put_conv(sd, "controlnet_cond_embedding.conv_in", emb["conv_in"])
+    _put_conv(sd, "controlnet_cond_embedding.conv_out", emb["conv_out"])
+    for k in range(sum(1 for name in emb if str(name).startswith("block_"))):
+        _put_conv(sd, f"controlnet_cond_embedding.blocks.{k}", emb[f"block_{k}"])
+    n_blocks = len(cfg.block_out_channels)
+    for bi, btype in enumerate(cfg.down_block_types):
+        for li in range(cfg.layers_per_block):
+            _put_resnet(sd, f"down_blocks.{bi}.resnets.{li}", p[f"down_{bi}_res_{li}"])
+            if btype == "CrossAttnDownBlock2D":
+                _put_transformer2d(sd, f"down_blocks.{bi}.attentions.{li}",
+                                   p[f"down_{bi}_attn_{li}"],
+                                   cfg.transformer_layers_per_block[bi])
+        if bi < n_blocks - 1:
+            _put_conv(sd, f"down_blocks.{bi}.downsamplers.0.conv",
+                      p[f"down_{bi}_downsample"]["conv"])
+    _put_resnet(sd, "mid_block.resnets.0", p["mid_res_0"])
+    _put_transformer2d(sd, "mid_block.attentions.0", p["mid_attn"],
+                       cfg.transformer_layers_per_block[-1])
+    _put_resnet(sd, "mid_block.resnets.1", p["mid_res_1"])
+    for i in range(sum(1 for name in p if str(name).startswith("zero_conv_")) - 1):
+        _put_conv(sd, f"controlnet_down_blocks.{i}", p[f"zero_conv_{i}"])
+    _put_conv(sd, "controlnet_mid_block", p["zero_conv_mid"])
+    return sd
+
+
 def vae_state_dict(flax_variables: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """{'params'} of ``rgie_tpu.diffusion.vae.AutoencoderKL`` -> diffusers
     ``AutoencoderKL`` state dict (inverse of ``convert_vae_diffusers``): the

@@ -289,7 +289,7 @@ def test_revert_and_sample_matches_jax(stacks):
     cfg_fn = lambda p, n: enc.encode_sd(p, n, do_cfg=True)
     scorer = ImageScorer(pipe=s["pipe"], embeds_fn=embeds_fn)
     adapter = ImageAdapter(pipe=s["pipe"], scorer=scorer, embeds_fn=embeds_fn,
-                           cfg_embeds_fn=cfg_fn, input_size=SIZE)
+                           cfg_embeds_fn=cfg_fn)
     embeds_fn_j = lambda p, n: enc_j.encode_sd(p, n, do_cfg=False)
     cfg_fn_j = lambda p, n: enc_j.encode_sd(p, n, do_cfg=True)
     scorer_j = Scorer_j(pipe=s["pipe_j"], params=s["params_j"], embeds_fn=embeds_fn_j)
@@ -393,10 +393,15 @@ def test_cli_device_cuda_raises_without_cuda(tmp_path, monkeypatch):
     assert not os.path.exists(tmp_path / "out")
 
 
-@pytest.mark.parametrize("flags,slice_name", [
-    (["--batch", "4"], "slice C2c"), (["--segment", "5"], "slice C2c")])
-def test_cli_flags_of_later_slices_raise(tmp_path, flags, slice_name):
+@pytest.mark.parametrize("variable", ["WORLD_SIZE", "RGIE_NUM_PROCESSES"])
+def test_cli_refuses_a_multi_process_launch(tmp_path, monkeypatch, variable):
+    """The diffusion CLI runs on one device: a launch of two processes (torch's
+    or the JAX package's variable) is refused before anything is built or
+    written; sharding the feed over processes comes with slice F."""
     from rgie_tpu_torch.cli.adapt_images import main
 
-    with pytest.raises(NotImplementedError, match=slice_name):
-        main(["--data-dir", str(tmp_path), "--device", "cpu"] + flags)
+    monkeypatch.setenv(variable, "2")
+    with pytest.raises(RuntimeError, match="multi-process runs of the diffusion CLI.*slice F"):
+        main(["--data-dir", str(tmp_path), "--out-dir", str(tmp_path / "out"),
+              "--device", "cpu", "--batch", "2"])
+    assert not os.path.exists(tmp_path / "out")

@@ -168,7 +168,7 @@ def run_edit_pair(pipe, enc, image, caption="a photo of a dog", prompt="happy", 
                      cfg_embeds_fn=lambda p, n: enc_j.encode_sd(p, n, do_cfg=True))
     scorer = ImageScorer(pipe=pipe, embeds_fn=fns["embeds_fn"],
                          added_cond_fn=fns.get("added_cond_fn"))
-    adapter = ImageAdapter(pipe=pipe, scorer=scorer, input_size=size, **fns)
+    adapter = ImageAdapter(pipe=pipe, scorer=scorer, **fns)
     scorer_j = Scorer_j(pipe=pipe_j, params=params_j, embeds_fn=fns_j["embeds_fn"],
                         added_cond_fn=fns_j.get("added_cond_fn"))
     adapter_j = Adapter_j(pipe=pipe_j, params=params_j, scorer=scorer_j, input_size=size,

@@ -74,7 +74,7 @@ def test_attention_library_call_is_only_the_smoke_yardstick():
 
 @pytest.mark.parametrize("name", ["OptimizeConfig", "ParamEditConfig", "AdaptConfig",
                                   "GuidanceConfig", "GanEditConfig", "MunitGenConfig",
-                                  "MunitDisConfig"])
+                                  "MunitDisConfig", "TrainGuidanceConfig"])
 def test_config_defaults_equal_the_jax_package(name):
     from rgie_tpu import config as C_j
     from rgie_tpu_torch import config as C
@@ -93,6 +93,19 @@ def test_config_defaults_equal_the_jax_package(name):
         assert ours.resolved_end_iteration() == theirs.resolved_end_iteration() == 50
     if name == "GuidanceConfig":
         assert ours.resolved_label() == theirs.resolved_label() == "CG_CFG_2_0.2"
+
+
+@pytest.mark.parametrize("path", ["training/prediction_stats.py"])
+def test_copied_files_equal_the_originals_below_their_docstring(path):
+    """JAX-free modules the port copies: everything after the module docstring
+    is the original's, byte for byte."""
+    def body(package):
+        with open(os.path.join(REPO, package, path), "rb") as f:
+            text = f.read()
+        assert text.startswith(b'"""')
+        return text.split(b'"""\n', 1)[1]
+
+    assert body("rgie_tpu_torch") == body("rgie_tpu")
 
 
 def test_paths_equal_the_jax_package():
