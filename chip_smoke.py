@@ -152,15 +152,29 @@ Phases (every check raises; nothing is caught):
    training CLI's ``features_and_labels`` and train step, ``MIDU_STEPS`` steps
    at batch ``MIDU_BATCH``, 1024 px; K2-fwd ``wide`` once per VAE encode and no
    other launch. One float32 step on the card against the CPU from the same
-   weights on the same features and labels.
-19. Each path is driven with the launch counts set to 0 just before it and
+   weights on the same features and labels. The teacher is float32 (checked
+   here and in phase 15, where the UNet and VAE are bfloat16).
+19. The dataset transform run through its CLI (``cli/run_img_trans.py``):
+   ``TRANS_IMAGES`` random 1024 px JPEGs in a COCO layout, ``--type CUSTOM
+   --batch TRANS_BATCH --compare-emotions``; K1 launches once per batch (2),
+   no K2; K1 on the first batch against its plain version (``TOLERANCE``) and
+   timed at (12, 1024, 1024, 3) per call and on the device, beside its bound.
+20. EmoNet: a random checkpoint under the reference's names drives the
+   parametric-edit CLI's ``--va-model`` (4 images, ``EMONET_STEPS`` steps, one
+   adaptation, the 1024 px re-render through K1); EmoNet card against CPU in
+   float32 (``EMONET_RTOL``).
+21. The analysis: ``cli/process_result_images.py --fid`` on phase 19's
+   originals and outputs (full-width Inception-v3, random weights); Inception
+   card against CPU in float32 (``INCEPTION_RTOL``); ``cli/run_eval_report.py
+   --scale sd`` with its steps cut (512 px: no K1, no K2 launch).
+22. Each path is driven with the launch counts set to 0 just before it and
    read just after. One JSON line ``{"kernels": [...]}`` (the K2 entries'
    times are bfloat16's, the type the full-width path runs by default, with
    float32's beside them under ``float32_*`` and the shapes a batch of 2
-   adds under ``batch_shapes``; their launches the sum over the paths, by
-   path under ``launches_by_path``; the GAN path and the bench launch
-   none), then the card, then the last line ``{"ok": true, "device":
-   {...}}``.
+   adds under ``batch_shapes``; the K1 entry has phase 19's shape under
+   ``run_img_trans_*``; launches are the sum over the paths, by path under
+   ``launches_by_path``; the GAN path and the bench launch none), then the
+   card, then the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.
@@ -231,6 +245,17 @@ CN_OUT_TOL, CN_GRAD_TOL, CN_CPU_SIZE = 2.0 ** -5, 5e-2, 256
 # other way on the other device (5186 of 7.48 M entries 2 lr apart there).
 MIDU_STEPS, MIDU_BATCH, MIDU_RTOL, MIDU_SETTLED = 3, 2, 1e-4, 1e-3
 
+# The dataset transform run (phase 19): run_img_trans's default batch over a
+# COCO layout of two batches' worth of random 1024 px JPEGs.
+TRANS_IMAGES, TRANS_BATCH = 24, 12
+# EmoNet (phase 20): the parametric edit's steps through --va-model, and its
+# forward card against CPU in float32, relative to the largest entry.
+EMONET_STEPS, EMONET_RTOL = 10, 1e-4
+# The analysis (phase 21): Inception-v3 card against CPU in float32, relative
+# to the largest entry; the evaluation report's images and cut steps.
+INCEPTION_RTOL = 1e-4
+REPORT_SCALE, REPORT_IMAGES, REPORT_STEPS, REPORT_DIFF_STEPS, REPORT_NTO_STEPS = "sd", 2, 10, 4, 2
+
 # K2 against its plain version. float32: both sum in float32 in different
 # orders; outputs and log-sum-exp are of order 1 or smaller, gradients are
 # compared relative to their largest entry. bfloat16: kernel and plain
@@ -275,19 +300,6 @@ def bound(flops, n_bytes, dtype):
     rate of their type, or bytes over the memory rate, whichever is larger."""
     by_ops, by_bytes = flops / PEAK_FLOPS[dtype] * 1e3, n_bytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
-
-
-def draw_params(rng, device):
-    """K1's parameters drawn as tests/test_pallas.py:12-20 draws them."""
-    from rgie_tpu_torch.ops import chain as CH
-
-    p = CH.init_params(device=device)
-    p.exposure = torch.tensor(rng.uniform(-0.4, 0.4), dtype=torch.float32, device=device)
-    p.saturation = torch.tensor(rng.uniform(0.4, 1.8), dtype=torch.float32, device=device)
-    p.contrast = torch.tensor(rng.uniform(0.5, 1.6), dtype=torch.float32, device=device)
-    p.tone = torch.tensor(rng.uniform(0.6, 1.4, (8, 1)), dtype=torch.float32, device=device)
-    p.color = torch.tensor(rng.uniform(0.6, 1.4, (8, 3)), dtype=torch.float32, device=device)
-    return p
 
 
 def check(cond, what):
@@ -1024,10 +1036,16 @@ def training_cli_phase(work, card):
     out = os.path.join(work, "midu_sd")
     reset_kernel_launches()
     t0 = time.perf_counter()
-    train_guidance_clf.main(["--scale", "sd", "--epochs", "1", "--num-batches", "2",
-                             "--val-batches", "1", "--batch-size", "8", "--out-dir", out,
-                             "--device", "cuda", "--seed", "0"])
+    stack = train_guidance_clf.main(["--scale", "sd", "--epochs", "1", "--num-batches", "2",
+                                     "--val-batches", "1", "--batch-size", "8", "--out-dir",
+                                     out, "--device", "cuda", "--seed", "0"])
     torch.cuda.synchronize()
+    frozen_dtype = next(stack.unet.parameters()).dtype
+    teacher_dtype = next(stack.teacher.loss.parameters()).dtype
+    print(f"midu training CLI types: UNet and VAE {str(frozen_dtype)[6:]}, teacher "
+          f"{str(teacher_dtype)[6:]}")
+    check(frozen_dtype == torch.bfloat16 and teacher_dtype == torch.float32,
+          "midu training CLI: the frozen models are not bfloat16 or the teacher not float32")
     seconds = time.perf_counter() - t0
     launches = kernel_launches()
     with open(os.path.join(out, "best_meta.json")) as f:
@@ -1261,8 +1279,11 @@ def sdxl_training_phase(stack, card):
     pipe = stack.pipe
     device, dtype = pipe.device, pipe.unet.dtype
     g = torch.Generator().manual_seed(4)
-    teacher = create_teacher(g, dtype=dtype)
+    # The teacher is float32 whatever the frozen models' type, as the training
+    # CLI builds it (its labels are the midu's targets).
+    teacher = create_teacher(g)
     teacher.loss.to(device)
+    teacher_dtype = next(teacher.loss.parameters()).dtype
     tstack = T.make_stack(pipe.unet, pipe.vae, teacher, DIFFUSION_SIZE)
     midu = create_midu(g, is_sdxl=True, in_channels=pipe.unet.cfg.block_out_channels[-1])
     midu0 = copy.deepcopy(midu)
@@ -1284,7 +1305,10 @@ def sdxl_training_phase(stack, card):
     print(f"SDXL midu training, 1024 px, batch {MIDU_BATCH}, frozen models {str(dtype)[6:]}: "
           f"losses {losses}, seconds per step {[round(t, 3) for t in times]} (the first "
           f"includes warm-up); K2 launches {counts}, expected ({MIDU_STEPS}, 0, 0): the VAE "
-          f"encode's {route} forward, once per step; features {tuple(feats.shape)}; on {card}")
+          f"encode's {route} forward, once per step; features {tuple(feats.shape)}; teacher "
+          f"{str(teacher_dtype)[6:]}, labels {str(labels.dtype)[6:]}; on {card}")
+    check(teacher_dtype == torch.float32 and labels.dtype == torch.float32,
+          "SDXL training: the teacher or its labels are not float32")
     check(counts == (MIDU_STEPS, 0, 0) and route == "wide", "SDXL training K2 launches")
     check(feats.shape == (MIDU_BATCH, 32, 32, 1280) and labels.shape == (MIDU_BATCH, 2),
           "SDXL training features and labels")
@@ -1505,11 +1529,239 @@ def gan_card_against_cpu_phase(device, rng):
           f"{rel_err(grads[torch.float32], grads[torch.float64]):.2e} of the largest entry")
 
 
+def write_coco(root, rng, n, size):
+    """A COCO captions layout of ``n`` random ``size`` px JPEGs: annotations/
+    captions_val2017.json and val2017/."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "val2017"), exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    images, annotations = [], []
+    for i in range(n):
+        name = f"{i + 1:012d}.jpg"
+        Image.fromarray((rng.uniform(0, 1, (size, size, 3)) * 255).astype(np.uint8)).save(
+            os.path.join(root, "val2017", name), quality=95)
+        images.append({"id": i + 1, "file_name": name})
+        annotations.append({"image_id": i + 1, "caption": f"a random image {i}"})
+    with open(os.path.join(root, "annotations", "captions_val2017.json"), "w") as f:
+        json.dump({"images": images, "annotations": annotations}, f)
+
+
+def run_img_trans_phase(device, work, rng, card):
+    """Phase 19: the dataset transform run at full width through its CLI:
+    ``TRANS_IMAGES`` random 1024 px JPEGs in a COCO layout, ``--type CUSTOM
+    --batch TRANS_BATCH --compare-emotions`` (the ten-crop ResNet-50 at
+    480/448, random weights from the seed). K1 launches once per batch,
+    ceil(TRANS_IMAGES / TRANS_BATCH) times, and no K2 kernel runs. Then K1 on
+    the first batch against its plain version (``TOLERANCE``) and timed at
+    that shape. Returns the K1 entry's fields for this path (``launches``: the
+    path's K1/K2 launch counts), and the directories of the originals and the
+    outputs."""
+    from rgie_tpu_torch.cli import run_img_trans
+    from rgie_tpu_torch.cli.kernel_variants import graph_ms
+    from rgie_tpu_torch.data import CocoCaptionsDataset, iterate_batches
+    from rgie_tpu_torch.ops.kernels import pointwise_chain as PC
+
+    coco, out = os.path.join(work, "coco"), os.path.join(work, "img_trans")
+    write_coco(coco, rng, TRANS_IMAGES, OUTPUT_SIZE)
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    summary = run_img_trans.main([
+        "--data-dir", coco, "--dataset", "coco", "--type", "CUSTOM", "--batch",
+        str(TRANS_BATCH), "--input-size", str(OUTPUT_SIZE), "--crop-size", str(OUTPUT_SIZE),
+        "--compare-emotions", "--output-dir", out, "--device", str(device), "--seed", "0"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    expected = -(-TRANS_IMAGES // TRANS_BATCH)
+    stats = summary.stats["CUSTOM"]
+    print(f"run_img_trans, {TRANS_IMAGES} images of {OUTPUT_SIZE} px in batches of "
+          f"{TRANS_BATCH}, --type CUSTOM --compare-emotions: {seconds:.2f} s with the models' "
+          f"build (the transform loop {summary.seconds:.2f} s, JPEG decode and encode "
+          f"included), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; K1/K2 "
+          f"launches {launches}, expected ({expected}, 0, 0, 0); VA means: valence "
+          f"{np.mean(stats['valence']):.5f}, arousal {np.mean(stats['arousal']):.5f}, delta "
+          f"({np.mean(stats['delta_valence']):.5f}, {np.mean(stats['delta_arousal']):.5f}), "
+          f"rec_error {np.mean(stats['rec_error']):.5f}; on {card}")
+    check(launches == (expected, 0, 0, 0), f"run_img_trans launches {launches}")
+    check(summary.images == TRANS_IMAGES and summary.batches == expected,
+          "run_img_trans: images or batches")
+    check(all(len(v) == TRANS_IMAGES and np.all(np.isfinite(v)) for v in stats.values()),
+          "run_img_trans: VA statistics")
+    check(min(stats["rec_error"]) > 0, "run_img_trans: an output equals its original")
+    check(len([n for n in os.listdir(out) if n.endswith(".jpg")]) == TRANS_IMAGES,
+          "run_img_trans: outputs")
+
+    # K1 on the CLI's first batch against its plain version, then timed there.
+    images_np, _ = next(iterate_batches(CocoCaptionsDataset(coco), TRANS_BATCH, OUTPUT_SIZE,
+                                        OUTPUT_SIZE))
+    images = torch.from_numpy(images_np).to(device)
+    params = summary.params
+    err = float((PC.pointwise_chain(images, params)
+                 - PC.reference_pointwise_chain(images, params)).abs().max())
+    shape = tuple(images.shape)
+    ms, plain_ms = time_group([lambda: PC.pointwise_chain(images, params),
+                               lambda: PC.reference_pointwise_chain(images, params)])
+    device_ms = graph_ms(lambda: PC.pointwise_chain(images, params))
+    bound_ms, bound_by = bound(60.0 * np.prod(shape), 2 * 4 * np.prod(shape), torch.float32)
+    print(f"pointwise_chain {shape} (run_img_trans's batch): max abs err {err:.3e} (tolerance "
+          f"{TOLERANCE:g}); kernel {ms:.4f} ms a call, {device_ms:.4f} ms on the device alone "
+          f"(CUDA graph replay), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms by "
+          f"{bound_by}; on {card}")
+    check(err <= TOLERANCE, f"pointwise_chain disagrees with its plain version at {shape}")
+    entry = {"launches": launches, "shape": list(shape), "ms": ms, "device_ms": device_ms,
+             "plain_ms": plain_ms, "bound_ms": bound_ms, "max_abs_err": err}
+    return entry, os.path.join(coco, "val2017"), out
+
+
+def emonet_phase(device, work, rng, card):
+    """Phase 20: EmoNet. A random EmoNet state dict under the reference's
+    names, written as EmoNet_valence.pt, drives the parametric-edit CLI's
+    ``--va-model`` on a feed of ``NUM_IMAGES`` random 480 px JPEGs at batch
+    ``NUM_IMAGES``, ``EMONET_STEPS`` Adam steps (cut from the CLI's 300) and
+    one adaptation (cut from five), re-rendered at 1024 px through K1 (one
+    launch per image, no K2). Then EmoNet's forward on 2 images, card against
+    CPU in float32 with TF32 off: ``EMONET_RTOL`` of the largest entry.
+    Returns the path's K1/K2 launch counts."""
+    from PIL import Image
+
+    from rgie_tpu_torch.cli import optimize_image_param
+    from rgie_tpu_torch.models.emonet import create_emonet, load_emonet, to_reference_keys
+
+    ckpt = os.path.join(work, "EmoNet_valence.pt")
+    torch.save(to_reference_keys(create_emonet(torch.Generator().manual_seed(3)).net.state_dict()),
+               ckpt)
+    feed = os.path.join(work, "emonet_feed")
+    os.makedirs(os.path.join(feed, "images"), exist_ok=True)
+    os.makedirs(os.path.join(feed, "annotations"), exist_ok=True)
+    for i in range(NUM_IMAGES):
+        Image.fromarray((rng.uniform(0, 1, (EDIT_SIZE, EDIT_SIZE, 3)) * 255).astype(np.uint8)
+                        ).save(os.path.join(feed, "images", f"{i + 1:012d}.jpg"))
+    with open(os.path.join(feed, "annotations", "captions.json"), "w") as f:
+        json.dump({str(i + 1): f"image {i}" for i in range(NUM_IMAGES)}, f)
+    out = os.path.join(work, "emonet_edit")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    optimize_image_param.main([
+        "--data-dir", feed, "--out-dir", out, "--va-model", ckpt, "--num-steps",
+        str(EMONET_STEPS), "--batch", str(NUM_IMAGES), "--adaptations", f"smoke:{ALPHA}",
+        "--device", str(device), "--seed", "0"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = kernel_launches()
+    print(f"EmoNet parametric edit through the CLI: {NUM_IMAGES} images {EDIT_SIZE} px, "
+          f"{EMONET_STEPS} steps, re-rendered at {OUTPUT_SIZE} px: {seconds:.2f} s with the "
+          f"models' build; K1/K2 launches {launches}, expected ({NUM_IMAGES}, 0, 0, 0); on {card}")
+    check(launches == (NUM_IMAGES, 0, 0, 0), f"EmoNet edit launches {launches}")
+    check(len(os.listdir(out)) == NUM_IMAGES, "EmoNet edit: outputs")
+
+    from rgie_tpu_torch.utils.checkpoint import load_torch_state_dict
+
+    net = load_emonet(load_torch_state_dict(ckpt), normalize_input=True)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, EDIT_SIZE, EDIT_SIZE, 3)).astype(np.float32))
+    with torch.no_grad():
+        cpu_out = net(x)
+        card_out = net.to(device)(x.to(device)).cpu()
+    err = rel_err(card_out, cpu_out)
+    print(f"EmoNet forward, 2 images {EDIT_SIZE} px, float32: card against CPU {err:.3e} of the "
+          f"largest entry (limit {EMONET_RTOL:g}); valence {cpu_out[:, 0].tolist()}, fake "
+          f"arousal {card_out[:, 1].tolist()}")
+    check(err <= EMONET_RTOL, "EmoNet: card disagrees with the CPU")
+    check(bool((card_out[:, 1] == 0).all()), "EmoNet: the fake arousal column is not zero")
+    return launches
+
+
+def analysis_phase(device, work, originals_dir, outputs_dir, rng, card):
+    """Phase 21: the analysis. (a) The result-processing CLI with ``--fid`` on
+    phase 19's originals and outputs as ``{name}_o.jpg`` and
+    ``{name}_custom.jpg``: VA and low-level metrics per image, the stats
+    test per metric, FID/KID/ISC with the full-width Inception-v3 (299 px,
+    2048-d features, 1008 classes, random weights from seed 0). (b)
+    Inception's features on 2 images, card against CPU in float32 with TF32
+    off: ``INCEPTION_RTOL`` of the largest entry. (c) The evaluation report
+    at ``--scale sd --limit REPORT_IMAGES`` with ``REPORT_STEPS`` edit steps
+    (cut from 100), ``REPORT_DIFF_STEPS`` diffusion steps (cut from 50) and
+    ``REPORT_NTO_STEPS`` null-text inner steps (cut from 10), float32. It
+    runs at 512 px, where the diffusion attention attends over 4096
+    positions, below the gate, so it launches no K2 kernel; its parametric
+    edit renders with the separate ops, so no K1. Returns the K1/K2 launch
+    counts of (a) and (c)."""
+    import shutil
+
+    from rgie_tpu_torch.cli import process_result_images, run_eval_report
+    from rgie_tpu_torch.models.inception import create_inception, preprocess
+
+    folder = os.path.join(work, "results")
+    os.makedirs(folder, exist_ok=True)
+    for name in sorted(os.listdir(outputs_dir)):
+        stem = name[:-len(".jpg")]
+        shutil.copy(os.path.join(originals_dir, name), os.path.join(folder, f"{stem}_o.jpg"))
+        shutil.copy(os.path.join(outputs_dir, name), os.path.join(folder, f"{stem}_custom.jpg"))
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    analysis = process_result_images.main([folder, "--fid", "--device", str(device)])
+    torch.cuda.synchronize()
+    counts = kernel_launches()
+    q = analysis.quality["custom"]
+    print(f"process_result_images --fid on {len(os.listdir(folder))} images: "
+          f"{time.perf_counter() - t0:.1f} s (the FID's 2048 x 2048 matrix square root on the "
+          f"host included); FID {q['frechet_inception_distance']:.6g}, KID "
+          f"{q['kernel_inception_distance_mean']:.6g} +- {q['kernel_inception_distance_std']:.3g}, "
+          f"ISC {q['inception_score_mean']:.6g} +- {q['inception_score_std']:.3g}; stats tests: "
+          + "; ".join(f"{m} {r['test']} p={r['p_value']:.4g}" for m, r in analysis.stats.items())
+          + f"; K1/K2 launches {counts}; on {card}")
+    check(len(analysis.table["method"]) == 2 * TRANS_IMAGES, "analysis: scored images")
+    check(set(analysis.stats) == {"valence", "arousal", "saturation", "bright", "colorful",
+                                  "light", "contrast", "blur"}, "analysis: stats tests")
+    check(all(np.isfinite(v) for v in q.values()), "analysis: non-finite FID/KID/ISC")
+    check(counts == (0, 0, 0, 0), f"the analysis launched K1/K2: {counts}")
+
+    model = create_inception(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(rng.uniform(0, 1, (2, OUTPUT_SIZE, OUTPUT_SIZE, 3)).astype(np.float32))
+    with torch.no_grad():
+        f_cpu, l_cpu = model(preprocess(x))
+        f_card, l_card = (t.cpu() for t in model.to(device)(preprocess(x.to(device))))
+    errs = rel_err(f_card, f_cpu), rel_err(l_card, l_cpu)
+    print(f"Inception-v3 (1008 classes), 2 images {OUTPUT_SIZE} px -> 299, float32: card against "
+          f"CPU features {errs[0]:.3e}, logits {errs[1]:.3e} of the largest entry (limit "
+          f"{INCEPTION_RTOL:g}); features {tuple(f_card.shape)}, largest {float(f_cpu.abs().max()):.3e}")
+    check(f_card.shape == (2, 2048) and l_card.shape == (2, 1008), "Inception: shapes")
+    check(max(errs) <= INCEPTION_RTOL, "Inception: card disagrees with the CPU")
+    del model
+    torch.cuda.empty_cache()
+
+    out = os.path.join(work, "eval_report")
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    report = run_eval_report.main([
+        "--scale", REPORT_SCALE, "--limit", str(REPORT_IMAGES), "--steps", str(REPORT_STEPS),
+        "--diff-steps", str(REPORT_DIFF_STEPS), "--nto-steps", str(REPORT_NTO_STEPS),
+        "--out-dir", out, "--device", str(device)])
+    torch.cuda.synchronize()
+    report_counts = kernel_launches()
+    print(f"run_eval_report --scale {REPORT_SCALE} --limit {REPORT_IMAGES}, {REPORT_STEPS} edit steps, "
+          f"{REPORT_DIFF_STEPS} diffusion steps, {REPORT_NTO_STEPS} null-text inner steps: "
+          f"{time.perf_counter() - t0:.1f} s (edits {report['edit_seconds']} s, models built on "
+          f"the host included); VA delta vs target {report['va_delta_vs_target']}; quality "
+          f"{report['quality_vs_original']}; K1/K2 launches {report_counts}; on {card}")
+    images = os.listdir(os.path.join(out, "images"))
+    check(len(images) == 4 * REPORT_IMAGES, "eval report: outputs")
+    check(all(np.all(np.isfinite(v)) for v in report["va_delta_vs_target"].values()),
+          "eval report: VA deltas")
+    check(set(report["quality_vs_original"]) == {"param", "gan", "diff"} and all(
+        np.isfinite(v) for q in report["quality_vs_original"].values() for v in q.values()),
+        "eval report: quality")
+    check(report_counts == (0, 0, 0, 0), f"the eval report launched K1/K2: {report_counts}")
+    return counts, report_counts
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available")
     sys.path.insert(0, REPO)
     from rgie_tpu_torch.cli import optimize_image_param as cli
+    from rgie_tpu_torch.cli.bench_fused_chain import draw_params
     from rgie_tpu_torch.cli.kernel_variants import graph_ms
     from rgie_tpu_torch.device import resolve_device
     from rgie_tpu_torch.ops import chain as CH
@@ -1694,12 +1946,41 @@ def main():
     gan_phase(device, card)
     torch.cuda.empty_cache()
     gan_card_against_cpu_phase(device, rng)
+    torch.cuda.empty_cache()
+
+    # ---- 19-21. the dataset transform run (K1 at its batch of 12), EmoNet
+    # through --va-model, the analysis CLIs
+    t0 = time.perf_counter()
+    trans, originals_dir, outputs_dir = run_img_trans_phase(device, work, rng, card)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts_emonet = emonet_phase(device, work, rng, card)
+    print(f"phase 20: {time.perf_counter() - t0:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    counts_analysis, counts_report = analysis_phase(device, work, originals_dir, outputs_dir,
+                                                    rng, card)
+    print(f"phase 21: {time.perf_counter() - t0:.1f} s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
     paths = {"float32 edit": counts_f32, "bfloat16 edit": counts_bf16, "SDXL edit": counts_sdxl,
              "batched edit": counts_batch, "ControlNet": counts_cn,
-             "SDXL midu training": counts_train}
+             "SDXL midu training": counts_train, "run_img_trans": trans["launches"][1:],
+             "EmoNet parametric edit": counts_emonet[1:],
+             "process_result_images": counts_analysis[1:],
+             "eval report": counts_report[1:]}
     for i, entry in enumerate(k2_entries):
         entry["launches"] = sum(counts[i] for counts in paths.values())
         entry["launches_by_path"] = {name: counts[i] for name, counts in paths.items()}
+    k1_paths = {"parametric edit": launches, "run_img_trans": trans["launches"][0],
+                "EmoNet parametric edit": counts_emonet[0],
+                "process_result_images": counts_analysis[0],
+                "eval report": counts_report[0]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -1707,11 +1988,15 @@ def main():
         "source": "rgie_tpu_torch/csrc/pointwise_chain.cu",
         "replaces": "rgie_tpu/ops/pallas/pointwise_chain.py:38",
         "replaces_function": "_prefix_kernel",
-        "launches": launches, "max_abs_err": max(errors), "timed_shape": list(timed_shape),
+        "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
+        "max_abs_err": max(errors + [trans["max_abs_err"]]), "timed_shape": list(timed_shape),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "device_ms": device_times[timed_shape], "one_image_ms": times[one_image][0],
         "one_image_plain_ms": times[one_image][1], "one_image_device_ms": device_times[one_image],
         "bound_ms": k1_bound_ms, "bound_by": k1_bound_by, "library_ms": None,
+        "run_img_trans_shape": trans["shape"], "run_img_trans_ms": trans["ms"],
+        "run_img_trans_device_ms": trans["device_ms"], "run_img_trans_plain_ms": trans["plain_ms"],
+        "run_img_trans_bound_ms": trans["bound_ms"],
     }] + k2_entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,11 @@ the diffusion CLI reads with ``--midu-ckpt``.
 
 Without ``--data-dir`` the images are random, drawn from ``--seed``; with it,
 the captions feed's images, full batches only. The UNet, VAE and teacher are
-random-weight stand-ins from ``--seed``, in ``--dtype`` (float32 at the tiny
-scales, bfloat16 at ``sd`` and ``sdxl``); the midu trains in float32.
+random-weight stand-ins from ``--seed``. The UNet and VAE run in ``--dtype``
+(float32 at the tiny scales, bfloat16 at ``sd`` and ``sdxl``); the teacher
+runs in float32 whatever ``--dtype`` says, as the reference builds it before
+it picks the type (its labels are the midu's targets); the midu trains in
+float32.
 ``--scale tiny`` and ``tiny-xl`` are test sizes; ``sdxl`` trains
 ``MiduSDXL`` over the SDXL UNet's mid block at 1024 px (reference
 train_guidance_clf.py:52-54,89-98), where the VAE's mid-block attention
@@ -66,8 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="sdxl = MiduSDXL over the SDXL UNet mid block at 1024 px (reference "
                          "train_guidance_clf.py:52-54,89-98); tiny-xl is its test-size twin")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default=None,
-                    help="the frozen UNet's, VAE's and teacher's type (default: bfloat16 at sd "
-                         "and sdxl); the midu trains in float32")
+                    help="the frozen UNet's and VAE's type (default: bfloat16 at sd and sdxl); "
+                         "the teacher and the midu run in float32")
     ap.add_argument("--setting", choices=("va", "valence", "arousal"), default="va")
     ap.add_argument("--epochs", type=int, default=100)
     ap.add_argument("--batch-size", type=int, default=8)
@@ -116,9 +119,9 @@ def make_stack(unet: UNet2DCondition, vae: AutoencoderKL, teacher: ClfWrapper,
 
 def build_models(args, generator: torch.Generator, device: torch.device
                  ) -> Tuple[TrainStack, nn.Module]:
-    """The frozen UNet, VAE and teacher (random stand-ins from ``generator``,
-    made on the host in the scale's type and moved once) and the float32 midu
-    to train."""
+    """The frozen UNet and VAE (random stand-ins from ``generator``, made on
+    the host in the scale's type and moved once), the float32 teacher and the
+    float32 midu to train."""
     from rgie_tpu_torch.diffusion.unet import create_unet
     from rgie_tpu_torch.diffusion.vae import create_vae
     from rgie_tpu_torch.models.midu import create_midu
@@ -138,7 +141,7 @@ def build_models(args, generator: torch.Generator, device: torch.device
 
     unet = create_unet(generator, unet_cfg, dtype=dtype)
     vae = create_vae(generator, vae_cfg, dtype=dtype)
-    teacher = create_teacher(generator, loss_type=args.setting, dtype=dtype, **teacher_sizes)
+    teacher = create_teacher(generator, loss_type=args.setting, **teacher_sizes)
     midu = create_midu(generator, is_sdxl=is_xl, num_outputs=2 if args.setting == "va" else 1,
                        in_channels=unet_cfg.block_out_channels[-1])
     teacher.loss.to(device)
@@ -150,9 +153,10 @@ def build_models(args, generator: torch.Generator, device: torch.device
 def features_and_labels(stack: TrainStack, generator: torch.Generator, images: torch.Tensor
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Teacher labels and the mid-block features at noisy latents of
-    ``images`` (B, H, W, 3) in [0, 1], both float32; the timesteps and the
-    noise are drawn from ``generator`` (JAX CLI: features_and_labels)."""
-    labels = stack.teacher.get_label(images).float()
+    ``images`` (B, H, W, 3) in [0, 1], both float32; the teacher reads the
+    images in float32; the timesteps and the noise are drawn from
+    ``generator`` (JAX CLI: features_and_labels)."""
+    labels = stack.teacher.get_label(images.float())
     latents = stack.vae.encode(images * 2 - 1).float()
     noisy, t = get_noisy_latents(generator, latents, stack.sched.alphas_cumprod,
                                  stack.sched.num_train_timesteps)
@@ -186,7 +190,8 @@ def image_batches(args, image_size: int, generator: torch.Generator, n_batches: 
                          generator=generator).to(device)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None) -> TrainStack:
+    """Train; returns the frozen stack the run used."""
     args = build_parser().parse_args(argv)
     from rgie_tpu_torch.device import require_single_process, resolve_device
     from rgie_tpu_torch.training.train_midu import (create_train_state, make_eval_step,
@@ -227,6 +232,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
               f"{val_loss:.5f} {'(best saved)' if saved else ''} "
               f"[{time.perf_counter() - t0:.1f}s]")
     print(f"best val loss: {ckpt.best_loss:.5f} at {ckpt.best_path}")
+    return stack
 
 
 if __name__ == "__main__":

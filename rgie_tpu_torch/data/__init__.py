@@ -1,5 +1,6 @@
-from rgie_tpu_torch.data.dataset import (CaptionFeedDataset, first_caption, iterate_batches,
+from rgie_tpu_torch.data.dataset import (CaptionFeedDataset, CocoCaptionsDataset,
+                                         ImageDirectoryDataset, first_caption, iterate_batches,
                                          load_image_rgb, preprocess_image)
 
-__all__ = ["CaptionFeedDataset", "first_caption", "iterate_batches", "load_image_rgb",
-           "preprocess_image"]
+__all__ = ["CaptionFeedDataset", "CocoCaptionsDataset", "ImageDirectoryDataset", "first_caption",
+           "iterate_batches", "load_image_rgb", "preprocess_image"]

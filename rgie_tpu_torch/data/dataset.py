@@ -1,9 +1,11 @@
-"""The captions-feed dataset and host-side image preprocessing: the port's own
-copy of the parts of ``rgie_tpu/data/dataset.py`` that its entry points use,
-on the pure-PIL path (numpy out, no framework).
+"""The captions-feed, COCO-captions and image-directory datasets and host-side
+image preprocessing: the port's own copy of the parts of
+``rgie_tpu/data/dataset.py`` that its entry points use, on the pure-PIL path
+(numpy out, no framework).
 
 Reference: ``src/datasets/Dataloader.py`` (captions.json map of
-{12-digit-id: caption} + images dir).
+{12-digit-id: caption} + images dir) and ``CocoCaptions.py`` (the COCO
+annotation format, captions grouped per image and joined with '/').
 """
 
 from __future__ import annotations
@@ -51,6 +53,53 @@ class CaptionFeedDataset:
         image = load_image_rgb(path)
         name = os.path.basename(path)
         return image, (name, path, self.captions[image_id])
+
+
+class CocoCaptionsDataset:
+    """Real COCO captions_{split}2017.json; multiple captions per image are
+    joined with '/' (CocoCaptions.py:16-51)."""
+
+    def __init__(self, root: str, split: str = "val"):
+        self.root = Path(root)
+        ann = self.root / "annotations" / f"captions_{split}2017.json"
+        with open(ann) as f:
+            data = json.load(f)
+        self.image_dir = self.root / f"{split}2017"
+        by_image: Dict[int, List[str]] = {}
+        for a in data["annotations"]:
+            by_image.setdefault(a["image_id"], []).append(a["caption"])
+        files = {img["id"]: img["file_name"] for img in data["images"]}
+        self.items: List[Tuple[str, str]] = [
+            (files[i], "/".join(caps)) for i, caps in sorted(by_image.items())
+            if i in files
+        ]
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, ix: int) -> Tuple[np.ndarray, Tuple[str, str, str]]:
+        name, caption = self.items[ix]
+        path = str(self.image_dir / name)
+        return load_image_rgb(path), (name, path, caption)
+
+
+class ImageDirectoryDataset:
+    """Flat directory of images, no captions (referenced by the reference's
+    run_img_trans.py:67 for NAPS-style media folders)."""
+
+    EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
+
+    def __init__(self, root: str):
+        self.root = Path(root)
+        self.files = sorted(p for p in self.root.iterdir()
+                            if p.suffix.lower() in self.EXTENSIONS)
+
+    def __len__(self) -> int:
+        return len(self.files)
+
+    def __getitem__(self, ix: int) -> Tuple[np.ndarray, Tuple[str, str, str]]:
+        path = str(self.files[ix])
+        return load_image_rgb(path), (os.path.basename(path), path, "")
 
 
 def first_caption(joined: str) -> str:

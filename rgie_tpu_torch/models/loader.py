@@ -1,7 +1,8 @@
 """Model loading dispatch for the pixel-space VA loss. Port of
 ``rgie_tpu/models/loader.py``: the checkpoint PATH drives the architecture
-(ValenceArousalLoss.py:29-57) — ResNet-50 with 4 outputs + sigmoid, changed
-by "no_sigmoid" (no sigmoid), "mse" (2 outputs, no sigmoid) and
+(ValenceArousalLoss.py:29-57) — "EmoNet" gives the valence-only EmoNet
+(``models/emonet.py``); otherwise ResNet-50 with 4 outputs + sigmoid,
+changed by "no_sigmoid" (no sigmoid), "mse" (2 outputs, no sigmoid) and
 "arousal_nll" (2 outputs). A missing checkpoint gives a random-weight
 stand-in so the pipelines run without the external artifacts.
 """
@@ -27,10 +28,17 @@ def load_va_loss(path_to_model: Optional[str], generator: torch.Generator,
     """Build the VA loss (on the CPU) with the reference's path-name dispatch.
     A torchvision ``va_pred_all`` state dict loads with ``strict=True``."""
     path = str(path_to_model) if path_to_model else ""
+    exists = bool(path) and os.path.exists(path)
     if "EmoNet" in path:
-        raise NotImplementedError(
-            "EmoNet regressors are not ported yet: they come with the analysis "
-            "slice (slice E, rgie_tpu/models/emonet.py)")
+        from rgie_tpu_torch.models.emonet import create_emonet, load_emonet
+
+        if exists:
+            net = load_emonet(load_torch_state_dict(path), normalize_input=is_input_range_0_1)
+        else:
+            net = create_emonet(generator, normalize_input=is_input_range_0_1)
+        # Output (valence, fake arousal) (EmoNet.py:92-96): a valence loss.
+        return ValenceArousalLoss(regressor=net, weight=weight, loss_type="valence",
+                                  is_minimized=is_minimized)
 
     num_classes = 4
     use_sigmoid = True
@@ -44,7 +52,7 @@ def load_va_loss(path_to_model: Optional[str], generator: torch.Generator,
 
     kw = dict(num_classes=num_classes, normalize=is_input_range_0_1,
               input_size=input_size, crop_size=crop_size, use_sigmoid=use_sigmoid)
-    if path and os.path.exists(path):
+    if exists:
         net = resnet50(num_classes)
         net.load_state_dict(load_torch_state_dict(path), strict=True)
         regressor = freeze_(EmotionRegressor(net, **kw))

@@ -64,6 +64,16 @@ def resnet_state_dict(flax_variables: Mapping[str, Any],
     return sd
 
 
+def emonet_state_dict(flax_variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params', 'batch_stats'} of ``rgie_tpu.models.emonet.EmoNet`` (a
+    one-output ResNet-50) -> a checkpoint under the reference's EmoNet names
+    (inverse of ``convert_emonet_checkpoint``), as ``models.emonet.load_emonet``
+    and ``models.loader.load_va_loss`` read it."""
+    from rgie_tpu_torch.models.emonet import to_reference_keys
+
+    return to_reference_keys(resnet_state_dict(flax_variables))
+
+
 def clip_visual_state_dict(flax_params: Mapping[str, Any], layers: int, heads: int,
                            width: int) -> Dict[str, torch.Tensor]:
     """{'params'} of ``rgie_tpu.models.clip.VisionTransformer`` -> OpenAI

@@ -22,10 +22,21 @@ def check_init_stats_adapt(stats: Dict[str, Dict[str, List[float]]], adaptation:
         stats[adaptation] = {k: [] for k in STAT_KEYS}
 
 
+def _with_arousal(score: np.ndarray) -> np.ndarray:
+    """A valence-only score (an EmoNet loss, ``loss_type="valence"``) gets
+    EmoNet's zero "fake arousal" column (EmoNet.py:92-96); the JAX package's
+    copy indexes a second column that is not there and raises."""
+    score = np.asarray(score)
+    if score.shape[-1] == 1:
+        score = np.concatenate([score, np.zeros_like(score)], axis=-1)
+    return score
+
+
 def record_edit(stats: Dict[str, List[float]], va_original: np.ndarray,
                 va_adapted: np.ndarray, rec_error: float) -> None:
     """Accumulate one edit's metrics (compare_emotions, run_img_trans.py:361-386)."""
-    delta = np.asarray(va_adapted) - np.asarray(va_original)
+    va_original, va_adapted = _with_arousal(va_original), _with_arousal(va_adapted)
+    delta = va_adapted - va_original
     stats["rec_error"].append(float(rec_error))
     stats["valence"].append(float(va_adapted[0, 0]))
     stats["arousal"].append(float(va_adapted[0, 1]))
@@ -45,10 +56,11 @@ def print_stats(stats: Dict[str, Dict[str, List[float]]]) -> None:
 
 def print_score(score: np.ndarray, label: str, orig_score: np.ndarray = None) -> None:
     """Exact printed format of ImageScorer.print_score (scoring.py:28-40)."""
+    score = _with_arousal(score)
     if orig_score is None:
         print(f"Score {label}: valence {score[0, 0]:.4f}, arousal {score[0, 1]:.4f}")
         return
-    delta = score - orig_score
+    delta = score - _with_arousal(orig_score)
     print(f"Score {label}: valence {score[0, 0]:.4f} delta {delta[0, 0]:.4f}, "
           f"arousal {score[0, 1]:.4f} delta {delta[0, 1]:.4f}")
 

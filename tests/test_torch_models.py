@@ -170,8 +170,13 @@ def test_loader_dispatch_and_strict_load(rng, regressors, tmp_path):
         va = load_va_loss(str(tmp_path / name) if name else None, _gen(), input_size=64, crop_size=56)
         assert (va.regressor.num_classes, va.regressor.use_sigmoid) == (classes, sigmoid), name
         assert va.regressor.net.fc.out_features == classes
-    with pytest.raises(NotImplementedError, match="slice E"):
-        load_va_loss(str(tmp_path / "EmoNet.pt"), _gen())
+    # A path naming EmoNet loads the valence-only EmoNet (its parity with JAX:
+    # tests/test_torch_emonet.py).
+    from rgie_tpu_torch.models.emonet import EmoNet
+
+    emo = load_va_loss(str(tmp_path / "EmoNet.pt"), _gen(), is_input_range_0_1=False)
+    assert isinstance(emo.regressor, EmoNet) and emo.loss_type == "valence"
+    assert emo.regressor.net.fc.out_features == 1
 
 
 # ---------------------------------------------------------------------------

@@ -28,14 +28,17 @@ def _module_names():
 def test_every_module_imports_without_jax():
     names = _module_names()
     assert len(names) >= 40 and "rgie_tpu_torch.cli.adapt_images" in names
+    assert {"rgie_tpu_torch.analysis.process_results", "rgie_tpu_torch.cli.run_eval_report",
+            "rgie_tpu_torch.models.emonet", "rgie_tpu_torch.models.inception"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
-        "from rgie_tpu_torch.cli import adapt_images, optimize_image_param\n"
+        "from rgie_tpu_torch.cli import adapt_images, optimize_image_param, run_img_trans\n"
         "adapt_images.build_parser(); optimize_image_param.build_parser()\n"
+        "run_img_trans.build_parser()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-        "'rgie_tpu', 'triton'))\n"
+        "'rgie_tpu', 'triton', 'pandas', 'matplotlib'))\n"
         "assert not bad, bad\n"
         "print('clean', len(sys.modules))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
@@ -95,7 +98,8 @@ def test_config_defaults_equal_the_jax_package(name):
         assert ours.resolved_label() == theirs.resolved_label() == "CG_CFG_2_0.2"
 
 
-@pytest.mark.parametrize("path", ["training/prediction_stats.py"])
+@pytest.mark.parametrize("path", ["training/prediction_stats.py",
+                                  "analysis/low_level_metrics.py"])
 def test_copied_files_equal_the_originals_below_their_docstring(path):
     """JAX-free modules the port copies: everything after the module docstring
     is the original's, byte for byte."""

@@ -123,6 +123,37 @@ def test_features_and_labels_match_jax(scale, size):
         np.testing.assert_allclose(got.numpy() / scale_, expect / scale_, atol=2e-5)
 
 
+def test_teacher_is_float32_at_dtype_bfloat16_and_its_labels_match_jax():
+    """At ``--dtype bfloat16`` the UNet and VAE are bfloat16 and the teacher
+    is float32, as the reference builds it (scripts/train_guidance_clf.py:
+    85-101 casts the UNet and VAE only): its labels equal JAX's float32
+    teacher's on the same weights within 1e-5 of the largest entry."""
+    from rgie_tpu.losses.emotion_loss import ValenceArousalLoss as VAL_j
+    from rgie_tpu.models.emotion import EmotionRegressor as ER_j
+
+    args = T.build_parser().parse_args(["--scale", "tiny", "--dtype", "bfloat16",
+                                        "--device", "cpu", "--batch-size", "2"])
+    stack, _ = T.build_models(args, torch.Generator().manual_seed(0), torch.device("cpu"))
+    assert next(stack.unet.parameters()).dtype == torch.bfloat16
+    assert next(stack.vae.parameters()).dtype == torch.bfloat16
+    assert {p.dtype for p in stack.teacher.loss.parameters()} == {torch.float32}
+    reg = stack.teacher.loss.regressor
+    assert reg.net.compute_dtype == torch.float32
+    images = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (2, 64, 64, 3))
+                              .astype(np.float32))
+    _, labels = T.features_and_labels(stack, torch.Generator().manual_seed(7),
+                                      images.to(torch.bfloat16))
+    assert labels.dtype == torch.float32
+    teacher_j = VAL_j(regressor=ER_j(
+        variables=jax.tree.map(jnp.asarray, TC.convert_resnet50(reg.net.state_dict())),
+        input_size=reg.input_size, crop_size=reg.crop_size), loss_type="va")
+    # the teacher reads the images the CLI hands it, cast to float32
+    expect = np.asarray(jax.jit(teacher_j.predict_loss_metric)(
+        jnp.asarray(images.to(torch.bfloat16).float().numpy())))
+    scale_ = np.abs(expect).max()
+    np.testing.assert_allclose(labels.numpy() / scale_, expect / scale_, rtol=0, atol=1e-5)
+
+
 @pytest.fixture(scope="module")
 def midu_pair():
     from rgie_tpu.models.midu import MiduSD as MiduSD_j
