@@ -167,7 +167,29 @@ Phases (every check raises; nothing is caught):
    originals and outputs (full-width Inception-v3, random weights); Inception
    card against CPU in float32 (``INCEPTION_RTOL``); ``cli/run_eval_report.py
    --scale sd`` with its steps cut (512 px: no K1, no K2 launch).
-22. Each path is driven with the launch counts set to 0 just before it and
+22. Slice F: two ranks share the one card in an explicit ``gloo`` group
+   (``parallel.spawn_ranks``: processes started with ``multiprocessing``'s
+   spawn), each running the four CLIs with its share of the global batch:
+   (a) the parametric CLI at full width (4 random 480 px JPEGs, global
+   ``--batch 4``, ``F_PARAM_STEPS`` steps, the 1024 px re-render): each
+   rank's rows against the one-process batch-4 rows of the same images
+   (``F_ROW_ATOL``), each output written once, K1 launched once per image of
+   the rank; (b) the training CLI at ``--scale sd`` (global ``--batch-size
+   8``, 2 steps): both ranks end with bit-identical midus, only rank 0 writes
+   the checkpoint, and one DDP step of a SD-width midu on fixed features
+   equals the one-process step on their union (phase 18's limits); (c) the
+   diffusion CLI at SD-2.1 width, 1024 px, bfloat16, global ``--batch 2``,
+   ``F_DIFF_STEPS`` DDIM steps with the CLI's null-text inner steps and
+   phase 15's midu: each rank's K2 counts equal the single-image derivation,
+   its row against the one-process batch-2 row of its image
+   (``F_DIFF_ATOL``; the one-process run is made after phase 16 on phase 7's
+   stack, the same weights); (d) the GAN CLI at 256 px, global ``--batch 4``,
+   ``F_GAN_STEPS`` steps: rows against the one-process rows
+   (``F_ROW_ATOL``); (e) a one-rank ``nccl`` group: one all-reduce and a
+   barrier. A failed rank fails the run. Seconds, img/s and peak memory per
+   rank and for one process at the same global batch are printed (two ranks
+   on one card measure overhead and contention, not scaling).
+23. Each path is driven with the launch counts set to 0 just before it and
    read just after. One JSON line ``{"kernels": [...]}`` (the K2 entries'
    times are bfloat16's, the type the full-width path runs by default, with
    float32's beside them under ``float32_*`` and the shapes a batch of 2
@@ -255,6 +277,27 @@ EMONET_STEPS, EMONET_RTOL = 10, 1e-4
 # to the largest entry; the evaluation report's images and cut steps.
 INCEPTION_RTOL = 1e-4
 REPORT_SCALE, REPORT_IMAGES, REPORT_STEPS, REPORT_DIFF_STEPS, REPORT_NTO_STEPS = "sd", 2, 10, 4, 2
+# Slice F (phase 22): two ranks on the one card, and the CLIs' global
+# batches and cut steps (the training CLI's are phase 15's). A rank edits
+# its images at a batch of 1 or 2 where one process edits all at 2 or 4, and
+# on the card neither run repeats bit for bit (cuDNN's backward algorithms
+# sum in run-dependent orders). The parametric rows are held to F_ROW_ATOL
+# (--segment's 1e-3 on the card; at F_PARAM_STEPS steps every image's best
+# vector is the identity, the loss having risen from the first step) and
+# their first losses to MIDU_RTOL. The GAN's loss trajectories agree within
+# 2.7e-6 of the largest and are held to MIDU_RTOL; its rows, decoded from
+# style codes that differ by rounding, moved 3.7e-4 to 4.0e-3 in [-1, 1]
+# against one process at batch 2 or 4 (NVIDIA H100 at 700 W): F_GAN_ROW_ATOL,
+# 2^-5; the distance between two images' edits is printed beside it. The
+# diffusion edit runs
+# in bfloat16, where one rounding step near 1 is 2^-8 and null-text Adam and
+# guidance carry roundings on: the same one-process edit run twice moved by
+# up to 0.024 (mean 0.0023). A row is held by its mean absolute distance from
+# the one-process batch-2 row, F_DIFF_ATOL (reading 0.012), printed beside
+# the largest entry and the mean distance between the two images' edits.
+F_RANKS, F_PARAM_STEPS, F_DIFF_STEPS, F_GAN_SIZE, F_GAN_STEPS = 2, 10, 2, 256, 5
+F_PARAM_BATCH, F_TRAIN_BATCH, F_DIFF_BATCH, F_GAN_BATCH = 4, 8, 2, 4
+F_ROW_ATOL, F_GAN_ROW_ATOL, F_DIFF_ATOL = 1e-3, 2.0 ** -5, 2.0 ** -5
 
 # K2 against its plain version. float32: both sum in float32 in different
 # orders; outputs and log-sum-exp are of order 1 or smaller, gradients are
@@ -1030,10 +1073,13 @@ def training_cli_phase(work, card):
     """Phase 15: the midu training CLI at --scale sd (SD-2.1 width, 512 px,
     bfloat16 frozen models, random weights and images from the seed) for 2
     steps at batch 8 and one validation batch. Returns the best checkpoint's
-    path."""
+    path, and the seconds and peak memory of the run (phase 22's one-process
+    training run; its peak memory above what was held before it)."""
     from rgie_tpu_torch.cli import train_guidance_clf
 
     out = os.path.join(work, "midu_sd")
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()      # phase 7's stack, not this run's
     reset_kernel_launches()
     t0 = time.perf_counter()
     stack = train_guidance_clf.main(["--scale", "sd", "--epochs", "1", "--num-batches", "2",
@@ -1056,7 +1102,8 @@ def training_cli_phase(work, card):
           f"positions, below the gate); on {card}")
     check(meta["step"] == 2 and np.isfinite(meta["val_loss"]), "midu training: checkpoint meta")
     check(launches == (0, 0, 0, 0), f"midu training at 512 px launched K1/K2: {launches}")
-    return os.path.join(out, "best.pt")
+    return os.path.join(out, "best.pt"), {"seconds": seconds,
+                                          "peak": torch.cuda.max_memory_allocated() - held}
 
 
 def load_checkpoint_phase(args, stack, path):
@@ -1100,20 +1147,11 @@ def batched_path_phase(args, stack, work, rng, card, single_s, single_peak):
     import argparse
     import dataclasses
 
-    from PIL import Image
-
     from rgie_tpu_torch.cli import adapt_images as cli
     from rgie_tpu_torch.diffusion import schedulers as SCH
     from rgie_tpu_torch.ops.kernels import flash_attention as FA
 
-    feed = os.path.join(work, "feed")
-    os.makedirs(os.path.join(feed, "images"), exist_ok=True)
-    os.makedirs(os.path.join(feed, "annotations"), exist_ok=True)
-    for b in range(BATCH):
-        Image.fromarray((rng.uniform(0, 1, (DIFFUSION_SIZE, DIFFUSION_SIZE, 3)) * 255)
-                        .astype(np.uint8)).save(os.path.join(feed, "images", f"{b + 1:012d}.jpg"))
-    with open(os.path.join(feed, "annotations", "captions.json"), "w") as f:
-        json.dump({str(b + 1): f"a random image {b}" for b in range(BATCH)}, f)
+    feed = write_feed(os.path.join(work, "feed"), rng, BATCH, DIFFUSION_SIZE)
     out_dir = os.path.join(work, "out_batched")
     args = argparse.Namespace(**{**vars(args), "batch": BATCH, "num_steps": BATCH_STEPS,
                                  "segment": 0, "out_dir": out_dir})
@@ -1624,22 +1662,13 @@ def emonet_phase(device, work, rng, card):
     launch per image, no K2). Then EmoNet's forward on 2 images, card against
     CPU in float32 with TF32 off: ``EMONET_RTOL`` of the largest entry.
     Returns the path's K1/K2 launch counts."""
-    from PIL import Image
-
     from rgie_tpu_torch.cli import optimize_image_param
     from rgie_tpu_torch.models.emonet import create_emonet, load_emonet, to_reference_keys
 
     ckpt = os.path.join(work, "EmoNet_valence.pt")
     torch.save(to_reference_keys(create_emonet(torch.Generator().manual_seed(3)).net.state_dict()),
                ckpt)
-    feed = os.path.join(work, "emonet_feed")
-    os.makedirs(os.path.join(feed, "images"), exist_ok=True)
-    os.makedirs(os.path.join(feed, "annotations"), exist_ok=True)
-    for i in range(NUM_IMAGES):
-        Image.fromarray((rng.uniform(0, 1, (EDIT_SIZE, EDIT_SIZE, 3)) * 255).astype(np.uint8)
-                        ).save(os.path.join(feed, "images", f"{i + 1:012d}.jpg"))
-    with open(os.path.join(feed, "annotations", "captions.json"), "w") as f:
-        json.dump({str(i + 1): f"image {i}" for i in range(NUM_IMAGES)}, f)
+    feed = write_feed(os.path.join(work, "emonet_feed"), rng, NUM_IMAGES, EDIT_SIZE)
     out = os.path.join(work, "emonet_edit")
     reset_kernel_launches()
     t0 = time.perf_counter()
@@ -1754,6 +1783,396 @@ def analysis_phase(device, work, originals_dir, outputs_dir, rng, card):
         "eval report: quality")
     check(report_counts == (0, 0, 0, 0), f"the eval report launched K1/K2: {report_counts}")
     return counts, report_counts
+
+
+def write_feed(root, rng, n, size):
+    """A captions feed of ``n`` random ``size`` px JPEGs: images/ and
+    annotations/captions.json."""
+    from PIL import Image
+
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    for i in range(n):
+        Image.fromarray((rng.uniform(0, 1, (size, size, 3)) * 255).astype(np.uint8)).save(
+            os.path.join(root, "images", f"{i + 1:012d}.jpg"))
+    with open(os.path.join(root, "annotations", "captions.json"), "w") as f:
+        json.dump({str(i + 1): f"a random image {i}" for i in range(n)}, f)
+    return root
+
+
+class Recorder:
+    """While active, records in this process what the slice F CLIs edit and
+    write: the parametric CLI's ``edit_batch`` outputs and seconds, the GAN
+    edit's outputs and seconds, the diffusion CLI's batches, the training
+    CLI's state, and the name of every JPEG and ``torch.save`` file."""
+
+    def __init__(self):
+        self.saved, self.rows, self.seconds, self.batches, self.states = [], [], [], [], []
+        self.best_steps, self.losses = [], []
+        self._undo = []
+
+    def _patch(self, owner, name, value):
+        self._undo.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, value)
+
+    def __enter__(self):
+        from PIL import Image
+
+        from rgie_tpu_torch.cli import adapt_images, optimize_image_param
+        from rgie_tpu_torch.engine import gan as GE
+        from rgie_tpu_torch.training import train_midu
+
+        save, torch_save = Image.Image.save, torch.save
+        edit_batch, make_gan_edit = optimize_image_param.edit_batch, GE.make_batched_edit
+        adapt_batches, shard = adapt_images.adapt_batches, train_midu.shard_train_step
+
+        def image_save(img, fp, *a, **k):
+            self.saved.append(os.path.basename(str(fp)))
+            return save(img, fp, *a, **k)
+
+        def file_save(obj, f, *a, **k):
+            self.saved.append(os.path.basename(str(f)))
+            return torch_save(obj, f, *a, **k)
+
+        def param_edit(*a, **k):
+            out = edit_batch(*a, **k)
+            self.rows.append(out.outputs.cpu().numpy())
+            self.best_steps += out.result.best_step.tolist()
+            self.losses.append(out.result.losses.cpu().numpy())
+            self.seconds.append(out.edit_seconds)
+            return out
+
+        def gan_edit(*a, **k):
+            edit = make_gan_edit(*a, **k)
+
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                result, edited = edit(*args)
+                torch.cuda.synchronize()
+                self.seconds.append(time.perf_counter() - t0)
+                self.rows.append(edited.cpu().numpy())
+                self.best_steps += result.best_step.tolist()
+                self.losses.append(result.losses.cpu().numpy())
+                return result, edited
+            return run
+
+        def diffusion_batches(*a, **k):
+            done = adapt_batches(*a, **k)
+            for names, out, log, seconds in done:
+                self.batches.append((names, out.edited.cpu().numpy(), log.nto_inner_steps))
+                self.seconds.append(seconds)
+            return done
+
+        def shard_train_step(state):
+            self.states.append(state)
+            return shard(state)
+
+        self._patch(Image.Image, "save", image_save)
+        self._patch(torch, "save", file_save)
+        self._patch(optimize_image_param, "edit_batch", param_edit)
+        self._patch(GE, "make_batched_edit", gan_edit)
+        self._patch(adapt_images, "adapt_batches", diffusion_batches)
+        self._patch(train_midu, "shard_train_step", shard_train_step)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, value in reversed(self._undo):
+            setattr(owner, name, value)
+
+
+def slice_f_argv(kind, work, tag, midu_path):
+    """The argv of a slice F CLI run: its feed under ``work``, its outputs
+    under ``work/f_<kind>_<tag>``, random weights from seed 0."""
+    out = os.path.join(work, f"f_{kind}_{tag}")
+    common = ["--out-dir", out, "--device", "cuda", "--seed", "0"]
+    none = os.path.join(REPO, "build", "no_checkpoint")
+    return {
+        "param": ["--data-dir", os.path.join(work, "f_param_feed"), "--num-steps",
+                  str(F_PARAM_STEPS), "--batch", str(F_PARAM_BATCH), "--output-size",
+                  str(OUTPUT_SIZE), "--adaptations", f"smoke:{ALPHA}", "--va-model", none],
+        "train": ["--scale", "sd", "--epochs", "1", "--num-batches", "2", "--val-batches", "1",
+                  "--batch-size", str(F_TRAIN_BATCH)],
+        "diffusion": ["--scale", "sd", "--input-size", str(DIFFUSION_SIZE), "--num-steps",
+                      str(F_DIFF_STEPS), "--batch", str(F_DIFF_BATCH), "--cfg-scale",
+                      str(CFG_SCALE), "--clf-scale", str(CLF_SCALE), "--reference-value",
+                      str(REFERENCE_VALUE), "--midu-ckpt", midu_path, "--data-dir",
+                      os.path.join(work, "f_diffusion_feed")],
+        "gan": ["--data-dir", os.path.join(work, "f_gan_feed"), "--num-steps", str(F_GAN_STEPS),
+                "--input-size", str(F_GAN_SIZE), "--batch", str(F_GAN_BATCH), "--adaptations",
+                f"smoke:{ALPHA}", "--va-model", none, "--munit-model", none],
+    }[kind] + common
+
+
+def run_slice_f_cli(kind, work, tag, midu_path):
+    """One slice F CLI in this process: seconds (the models' build
+    included), edit seconds, peak memory, K1/K2 launches and what
+    ``Recorder`` saw (the trained midu's parameters in place of its state)."""
+    from rgie_tpu_torch.cli import (adapt_images, optimize_image_imaginaire,
+                                    optimize_image_param, train_guidance_clf)
+
+    main = {"param": optimize_image_param.main, "train": train_guidance_clf.main,
+            "diffusion": adapt_images.main, "gan": optimize_image_imaginaire.main}[kind]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        main(slice_f_argv(kind, work, tag, midu_path))
+    torch.cuda.synchronize()
+    run = {"seconds": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated(),
+           "launches": kernel_launches(), "saved": rec.saved, "rows": rec.rows,
+           "best_steps": rec.best_steps, "losses": rec.losses, "edit_seconds": sum(rec.seconds),
+           "batches": rec.batches}
+    if rec.states:
+        run["midu"] = {k: v.detach().cpu().numpy() for k, v in
+                       rec.states[0].model.state_dict().items()}
+    return run
+
+
+def slice_f_ddp(feats, labels, device):
+    """One DDP step of a SD-width midu on this rank's rows of ``feats``; rank
+    1 starts from other weights, which ``shard_train_step``'s broadcast
+    replaces. Returns the parameters and the averaged gradients, flat, and
+    the mean loss."""
+    from rgie_tpu_torch import parallel as PAR
+    from rgie_tpu_torch.config import TrainGuidanceConfig
+    from rgie_tpu_torch.training import create_train_state
+    from rgie_tpu_torch.training.train_midu import shard_train_step
+
+    rank, world = PAR.process_info()
+    midu = slice_f_midu()
+    with torch.no_grad():
+        for p in midu.parameters():
+            p.add_(rank)
+    step, state = shard_train_step(create_train_state(midu.to(device), TrainGuidanceConfig()))
+    rows = slice(rank * len(feats) // world, (rank + 1) * len(feats) // world)
+    state, loss, _ = step(state, torch.from_numpy(feats[rows]).to(device),
+                          torch.from_numpy(labels[rows]).to(device))
+    params = torch.cat([p.detach().flatten() for p in state.model.parameters()]).cpu().numpy()
+    grads = torch.cat([p.grad.flatten() for p in state.model.parameters()]).cpu().numpy()
+    return params, grads, float(loss)
+
+
+def slice_f_midu():
+    from rgie_tpu_torch.models.midu import create_midu
+
+    return create_midu(torch.Generator().manual_seed(6), in_channels=1280)
+
+
+def slice_f_rank(work, midu_path, feats, labels):
+    """One rank of phase 22: the DDP step, then the four CLIs."""
+    from rgie_tpu_torch import parallel as PAR
+
+    device = PAR.process_device("cuda")
+    out = {"device": str(device), "ddp": slice_f_ddp(feats, labels, device)}
+    for kind in ("param", "train", "diffusion", "gan"):
+        out[kind] = run_slice_f_cli(kind, work, f"rank{PAR.process_info()[0]}", midu_path)
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_probe():
+    """One all-reduce and one barrier in a one-rank NCCL group."""
+    import torch.distributed as dist
+
+    x = torch.full((4,), 3.0, device="cuda")
+    dist.all_reduce(x)
+    dist.barrier()
+    torch.cuda.synchronize()
+    return dist.get_backend(), x.cpu().tolist()
+
+
+def slice_f_diffusion_reference(args, stack, work, rng, midu_path):
+    """Phase 22's one-process diffusion runs, made after phase 16 on phase 7's
+    stack (the weights the diffusion CLI builds from seed 0 with phase 15's
+    midu): ``adapt_batches`` on a feed of ``F_DIFF_BATCH`` random 1024 px
+    JPEGs at ``F_DIFF_STEPS`` DDIM steps, at ``--batch F_DIFF_BATCH`` (the
+    run a rank's row is held to) and at ``--batch 1`` (what each rank runs),
+    through ``Recorder``. Returns the first run's fields and, under
+    ``batch1``, the second's batches."""
+    import dataclasses
+
+    from rgie_tpu_torch.cli import adapt_images as cli
+    from rgie_tpu_torch.diffusion import schedulers as SCH
+
+    feed = write_feed(os.path.join(work, "f_diffusion_feed"), rng, F_DIFF_BATCH, DIFFUSION_SIZE)
+    args = cli.build_parser().parse_args(slice_f_argv("diffusion", work, "single", midu_path))
+    check(args.data_dir == feed, "slice F diffusion feed")
+    stack = stack._replace(pipe=dataclasses.replace(stack.pipe,
+                                                    sched=SCH.make_schedule(args.num_steps)))
+    gcfg, acfg = cli.make_configs(args)
+    adapter, items = cli.make_adapter(stack), cli.feed_items(feed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    with Recorder() as rec:
+        cli.adapt_batches(args, stack, adapter, items, gcfg, acfg, args.out_dir)
+    torch.cuda.synchronize()
+    run = {"seconds": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated(),
+           "launches": kernel_launches(), "saved": rec.saved, "edit_seconds": sum(rec.seconds),
+           "batches": rec.batches}
+    args.batch = 1
+    with Recorder() as rec:
+        cli.adapt_batches(args, stack, adapter, items, gcfg, acfg, args.out_dir + "_batch1")
+    run["batch1"] = rec.batches
+    return run
+
+
+def slice_f_phase(device, work, rng, card, midu_path, train_single, diffusion_single):
+    """Phase 22, slice F: the four CLIs over two ranks that share the card in
+    a gloo group, against one process at the same global batch (the
+    parametric and GAN runs made here; the diffusion run after phase 16;
+    training is phase 15's run), then a one-rank NCCL group. Returns the K1
+    and K2 launch counts by path."""
+    from rgie_tpu_torch import parallel as PAR
+    from rgie_tpu_torch.config import TrainGuidanceConfig
+    from rgie_tpu_torch.training import create_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    write_feed(os.path.join(work, "f_param_feed"), rng, F_PARAM_BATCH, EDIT_SIZE)
+    write_feed(os.path.join(work, "f_gan_feed"), rng, F_GAN_BATCH, F_GAN_SIZE)
+    feats = rng.standard_normal((F_TRAIN_BATCH, 8, 8, 1280)).astype(np.float32)
+    labels = rng.uniform(0, 1, (F_TRAIN_BATCH, 2)).astype(np.float32)
+    single = {kind: run_slice_f_cli(kind, work, "single", midu_path) for kind in ("param", "gan")}
+    single.update(train=train_single, diffusion=diffusion_single)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = PAR.spawn_ranks(slice_f_rank, F_RANKS, work, midu_path, feats, labels,
+                            backend="gloo", timeout=600)
+    ranks_s = time.perf_counter() - t0
+
+    images = {"param": F_PARAM_BATCH, "diffusion": F_DIFF_BATCH, "gan": F_GAN_BATCH}
+    for kind in ("param", "train", "diffusion", "gan"):
+        runs = [("one process", single[kind])] + [(f"rank {r}", ranks[r][kind])
+                                                  for r in range(F_RANKS)]
+        print(f"slice F {kind}: " + "; ".join(
+            f"{who} {run['seconds']:.2f} s with the models' build"
+            + (f", edit {run['edit_seconds']:.3f} s = "
+               f"{images[kind] // (1 if who == 'one process' else F_RANKS) / run['edit_seconds']:.4f} img/s"
+               if run.get("edit_seconds") else "")
+            + (f", peak {run['peak'] / 2**30:.2f} GiB" if run.get("peak") else "")
+            for who, run in runs) + f" (two ranks share one card: overhead and contention, not "
+                                    f"scaling); on {card}")
+    check([r["device"] for r in ranks] == ["cuda:0"] * F_RANKS, "slice F: ranks' devices")
+
+    # (a) the parametric CLI: rank r edits images r, r + 2; K1 once per image
+    names = [f"{i + 1:012d}_smoke.jpg" for i in range(F_PARAM_BATCH)]
+    expect = np.concatenate(single["param"]["rows"])
+    first = np.concatenate(single["param"]["losses"])[:, 0]
+    for r, rank in enumerate(ranks):
+        mine = list(range(r, F_PARAM_BATCH, F_RANKS))
+        got = np.concatenate(rank["param"]["rows"])
+        err = float(np.abs(got - expect[mine]).max())
+        e_first = float(np.abs(np.concatenate(rank["param"]["losses"])[:, 0] - first[mine]).max()
+                        / np.abs(first).max())
+        print(f"slice F parametric edit, rank {r}: images {[i + 1 for i in mine]}, rows against "
+              f"the one-process batch-{F_PARAM_BATCH} rows {err:.3e} (limit {F_ROW_ATOL:g}), "
+              f"first losses {e_first:.3e} of the largest (limit {MIDU_RTOL:g}); best steps "
+              f"{rank['param']['best_steps']} (one process {single['param']['best_steps']}); "
+              f"K1/K2 launches {rank['param']['launches']}; wrote {rank['param']['saved']}")
+        check(got.shape == (len(mine), OUTPUT_SIZE, OUTPUT_SIZE, 3), "slice F param rows")
+        check(err <= F_ROW_ATOL, f"slice F parametric rows of rank {r}")
+        check(e_first <= MIDU_RTOL, f"slice F parametric first losses of rank {r}")
+        check(rank["param"]["launches"] == (len(mine), 0, 0, 0), f"slice F K1 launches, rank {r}")
+        check(rank["param"]["saved"] == [names[i] for i in mine], f"slice F param outputs, rank {r}")
+    check(single["param"]["launches"] == (F_PARAM_BATCH, 0, 0, 0), "slice F one-process K1")
+    check(sorted(single["param"]["saved"]) == names, "slice F one-process param outputs")
+
+    # (b) training: one midu on both ranks, rank 0 alone writes; the DDP step
+    midus = [rank["train"]["midu"] for rank in ranks]
+    check(all(np.array_equal(midus[0][k], midus[1][k]) for k in midus[0]),
+          "slice F training: the ranks' midus differ")
+    check("best.pt" in ranks[0]["train"]["saved"] and not ranks[1]["train"]["saved"],
+          "slice F training: checkpoint writers")
+    (p0, g0, l0), (p1, g1, l1) = (rank["ddp"] for rank in ranks)
+    check(np.array_equal(p0, p1) and np.array_equal(g0, g1) and l0 == l1,
+          "slice F DDP step: the ranks differ")
+    cfg = TrainGuidanceConfig()
+    midu = slice_f_midu()
+    p_init = torch.cat([p.detach().flatten() for p in midu.parameters()])
+    state, loss, _ = make_train_step()(create_train_state(midu.to(device), cfg),
+                                       torch.from_numpy(feats).to(device),
+                                       torch.from_numpy(labels).to(device))
+    p_one = torch.cat([p.detach().flatten() for p in state.model.parameters()]).cpu()
+    g_one = torch.cat([p.grad.flatten() for p in state.model.parameters()]).cpu()
+    g_eff = (g_one + cfg.weight_decay * p_init).abs()
+    settled = g_eff > MIDU_SETTLED * g_eff.max()
+    apart = (torch.from_numpy(p0) - p_one).abs()[settled]
+    e_grad = rel_err(torch.from_numpy(g0), g_one)
+    print(f"slice F DDP midu step ({F_TRAIN_BATCH} rows of (8, 8, 1280) features, "
+          f"{F_TRAIN_BATCH // F_RANKS} a rank) against one process on all: loss {l0:.7f} vs "
+          f"{float(loss):.7f}, gradients {e_grad:.3e} of the largest entry (limit "
+          f"{MIDU_RTOL:g}); updates at the {int(settled.sum())} of {p_one.numel()} settled "
+          f"entries apart by at most {float(apart.max()):.3e} (limit a hundredth of lr and a "
+          f"rounding); the ranks bit-identical; the training CLI's midus bit-identical, "
+          f"checkpoint written by rank 0 only")
+    check(abs(l0 - float(loss)) <= MIDU_RTOL * abs(float(loss)), "slice F DDP loss")
+    check(e_grad <= MIDU_RTOL, "slice F DDP gradients")
+    check(bool((apart <= 1e-2 * cfg.learning_rate + p_init.abs()[settled] * 2.0 ** -23).all()),
+          "slice F DDP updates")
+
+    # (c) the diffusion CLI: rank r edits image r + 1 alone
+    def by_name(batches):
+        return {n: row for names_, rows, _ in batches for n, row in zip(names_, rows)}
+
+    expect, expect1 = by_name(single["diffusion"]["batches"]), by_name(single["diffusion"]["batch1"])
+    rows2 = list(expect.values())
+    across = float(np.abs(rows2[0] - rows2[1]).mean())
+    k2_by_rank = []
+    for r, rank in enumerate(ranks):
+        (names_, rows, inner), = rank["diffusion"]["batches"]
+        counts = rank["diffusion"]["launches"][1:]
+        want_fwd, want_bwd = expected_flash_launches(F_DIFF_STEPS, inner)
+        apart = np.abs(rows[0] - expect[names_[0]])
+        again = np.abs(rows[0] - expect1[names_[0]])
+        print(f"slice F diffusion edit, rank {r}: {names_}, K2 launches {counts}, expected "
+              f"({want_fwd}, {want_bwd}, {want_bwd}); row against the one-process batch-"
+              f"{F_DIFF_BATCH} row: mean {float(apart.mean()):.3e} (limit {F_DIFF_ATOL:g}), max "
+              f"{float(apart.max()):.3e}, 99.9th percentile {float(np.quantile(apart, 0.999)):.3e}; "
+              f"against the one-process batch-1 edit of its image (the same program run again): "
+              f"mean {float(again.mean()):.3e}, max {float(again.max()):.3e}; the two images' "
+              f"one-process rows apart by {across:.3e} on average; wrote "
+              f"{rank['diffusion']['saved']}")
+        check(names_ == [f"{r + 1:012d}.jpg"], f"slice F diffusion items, rank {r}")
+        check(counts == (want_fwd, want_bwd, want_bwd), f"slice F K2 launches, rank {r}")
+        check(bool(np.isfinite(rows).all()) and float(apart.mean()) <= F_DIFF_ATOL,
+              f"slice F diffusion row {r}")
+        check(rank["diffusion"]["saved"] == names_, f"slice F diffusion outputs, rank {r}")
+        k2_by_rank.append(counts)
+
+    # (d) the GAN CLI: the loss trajectories, then the rows
+    expect = np.concatenate(single["gan"]["rows"])
+    losses = np.concatenate(single["gan"]["losses"])
+    across = float(np.abs(expect[0] - expect[1]).mean())
+    for r, rank in enumerate(ranks):
+        mine = list(range(r, F_GAN_BATCH, F_RANKS))
+        got = np.concatenate(rank["gan"]["rows"])
+        err = float(np.abs(got - expect[mine]).max())
+        e_loss = float(np.abs(np.concatenate(rank["gan"]["losses"]) - losses[mine]).max()
+                       / np.abs(losses).max())
+        print(f"slice F GAN edit, rank {r}: loss trajectories against the one-process ones "
+              f"{e_loss:.3e} of the largest (limit {MIDU_RTOL:g}), rows {err:.3e} (limit "
+              f"{F_GAN_ROW_ATOL:g}; two images' edits {across:.3e} apart on average); best steps "
+              f"{rank['gan']['best_steps']} (one process "
+              f"{single['gan']['best_steps']}); K1/K2 launches {rank['gan']['launches']}")
+        check(e_loss <= MIDU_RTOL, f"slice F GAN loss trajectories of rank {r}")
+        check(got.shape == (len(mine), F_GAN_SIZE, F_GAN_SIZE, 3) and err <= F_GAN_ROW_ATOL,
+              f"slice F GAN rows of rank {r}")
+        check(rank["gan"]["saved"] == [names[i] for i in mine], f"slice F GAN outputs, rank {r}")
+
+    # (e) NCCL starts
+    backend, value = PAR.spawn_ranks(nccl_probe, 1, backend="nccl", timeout=300)[0]
+    print(f"slice F one-rank NCCL group: backend {backend}, all-reduce {value}, barrier passed "
+          f"(NCCL over several cards is unverified: the machine has one)")
+    check(backend == "nccl" and value == [3.0] * 4, "slice F NCCL probe")
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s (the two ranks {ranks_s:.1f} s)")
+    return {"k1": {f"slice F parametric edit, rank {r}": ranks[r]["param"]["launches"][0]
+                   for r in range(F_RANKS)} | {
+                       "slice F parametric edit, one process": single["param"]["launches"][0]},
+            "k2": {f"slice F diffusion edit, rank {r}": k2_by_rank[r] for r in range(F_RANKS)} | {
+                "slice F diffusion edit, one process": single["diffusion"]["launches"][1:]}}
 
 
 def main():
@@ -1922,9 +2341,14 @@ def main():
     # ---- 15-17. midu training at --scale sd through its CLI, its checkpoint
     # read by the edit, the batched edit in bfloat16 and ControlNet, on the
     # stack of phase 7
-    midu_path = training_cli_phase(work, card)
+    midu_path, train_single = training_cli_phase(work, card)
     load_checkpoint_phase(edit_args, stack, midu_path)
     counts_batch = batched_path_phase(edit_args, stack, work, rng, card, single_s, single_peak)
+    torch.cuda.empty_cache()
+    # phase 22's one-process diffusion run, on the same weights (its own rng
+    # keeps the later phases' inputs)
+    rng_f = np.random.default_rng(22)
+    diffusion_single = slice_f_diffusion_reference(edit_args, stack, work, rng_f, midu_path)
     torch.cuda.empty_cache()
     counts_cn = controlnet_phase(stack, rng, card)
     del stack
@@ -1967,20 +2391,24 @@ def main():
                                                     rng, card)
     print(f"phase 21: {time.perf_counter() - t0:.1f} s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    torch.cuda.empty_cache()
+
+    # ---- 22. slice F: two ranks on the card against one process, and NCCL
+    counts_f = slice_f_phase(device, work, rng_f, card, midu_path, train_single, diffusion_single)
 
     paths = {"float32 edit": counts_f32, "bfloat16 edit": counts_bf16, "SDXL edit": counts_sdxl,
              "batched edit": counts_batch, "ControlNet": counts_cn,
              "SDXL midu training": counts_train, "run_img_trans": trans["launches"][1:],
              "EmoNet parametric edit": counts_emonet[1:],
              "process_result_images": counts_analysis[1:],
-             "eval report": counts_report[1:]}
+             "eval report": counts_report[1:], **counts_f["k2"]}
     for i, entry in enumerate(k2_entries):
         entry["launches"] = sum(counts[i] for counts in paths.values())
         entry["launches_by_path"] = {name: counts[i] for name, counts in paths.items()}
     k1_paths = {"parametric edit": launches, "run_img_trans": trans["launches"][0],
                 "EmoNet parametric edit": counts_emonet[0],
                 "process_result_images": counts_analysis[0],
-                "eval report": counts_report[0]}
+                "eval report": counts_report[0], **counts_f["k1"]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

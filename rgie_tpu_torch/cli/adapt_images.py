@@ -20,8 +20,8 @@ default), ``--scale sdxl`` SDXL base width (1024 px, two text towers, pooled
 embeddings and micro-conditioning time ids). With ``--scheduler dpm`` the
 SDXL edit steps over karras sigmas (lu lambdas asked for too, as in the
 reference, where karras takes precedence), forward and inverse; the SD edit
-over the alphas table. Runs on one device; ``--device cuda`` (the default)
-fails when CUDA is missing, and the CPU is used only for ``--device cpu``.
+over the alphas table. ``--device cuda`` (the default) fails when CUDA is
+missing, and the CPU is used only for ``--device cpu``.
 At 1024 px the VAE's mid-block attention (16384 positions) runs through the
 flash-attention CUDA kernels, and at ``--scale sd`` the UNet's top-level
 self-attention too; SDXL's UNet attends over 4096 positions or fewer, below
@@ -34,9 +34,13 @@ K`` runs it in windows of K diffusion steps (``diffusion/segmented.py``),
 with the same results. Differences from the JAX CLI, on purpose: one image
 at a time goes through the same program (the JAX CLI runs its per-image
 adapter there and ignores ``--segment``), the last batch of a dataset is not
-padded to B images (the padding changes no image's result), and a batch runs
-on one device: there is no mesh and no multi-process launch until slice F
-(the CLI refuses one).
+padded to B images (the padding changes no image's result), and a process
+runs on one device (JAX's shards a batch over the devices of a mesh).
+
+Several processes (``torchrun --nproc_per_node N``, one card each):
+``--batch`` is the global batch and must divide over them; rank p edits feed
+items p, p+N, ... (``ShardedView``), ``--batch / N`` at a time, and writes
+their outputs.
 """
 
 from __future__ import annotations
@@ -316,14 +320,15 @@ def batch_conds(adapter: ImageAdapter, gcfg: GuidanceConfig, captions: Sequence[
 
 
 def feed_items(data_dir: str, limit: Optional[int] = None) -> List[Tuple[str, str, str]]:
-    """(name, image path, first caption) of a captions feed's first ``limit``
-    images (all without a limit)."""
-    from rgie_tpu_torch.data import CaptionFeedDataset, first_caption
+    """(name, image path, first caption) of this process's share of a
+    captions feed's first ``limit`` images (all without a limit): items p,
+    p+N, ... of N processes (``ShardedView``), every item in one process."""
+    from rgie_tpu_torch.data import CaptionFeedDataset, ShardedView, first_caption
+    from rgie_tpu_torch.parallel import process_info
 
-    dataset = CaptionFeedDataset(data_dir)
-    n = len(dataset) if limit is None else min(limit, len(dataset))
+    dataset = ShardedView(CaptionFeedDataset(data_dir), *process_info())
     items = []
-    for i in range(n):
+    for i in range(dataset.local_count(limit)):
         _, (name, path, captions) = dataset[i]
         items.append((name, path, first_caption(captions)))
     return items
@@ -332,8 +337,9 @@ def feed_items(data_dir: str, limit: Optional[int] = None) -> List[Tuple[str, st
 def adapt_batches(args, stack: EditStack, adapter: ImageAdapter,
                   items: Sequence[Tuple[str, str, str]], gcfg: GuidanceConfig, acfg: AdaptConfig,
                   out_dir: str) -> List[tuple]:
-    """Edit ``items``, (name, image path, caption) each, ``--batch`` at a time
-    (the last batch holds what is left: it is not padded). Per image: its
+    """Edit ``items``, (name, image path, caption) each, this process's share
+    of ``--batch`` at a time (the last batch holds what is left: it is not
+    padded). Per image: its
     name, both scores, the reconstruction error and its JPEG under
     ``out_dir/<label>/``; per batch one timing line. Returns, per batch,
     (names, ``BatchedEditOutputs``, ``RunLog``, seconds)."""
@@ -342,8 +348,10 @@ def adapt_batches(args, stack: EditStack, adapter: ImageAdapter,
 
     from rgie_tpu_torch.data.dataset import load_image_rgb
     from rgie_tpu_torch.diffusion.pipeline import RunLog
+    from rgie_tpu_torch.parallel import split_batch
 
     pipe, scorer = stack.pipe, adapter.scorer
+    local_batch = split_batch(args.batch)
     program = make_batched_program(args, pipe, gcfg, acfg)
     label = gcfg.resolved_label()
     out_sub = os.path.join(out_dir, label)
@@ -354,8 +362,8 @@ def adapt_batches(args, stack: EditStack, adapter: ImageAdapter,
         added_empty = cond_row(adapter.added_cond_fn("", ""), 1)
 
     n, done = len(items), []
-    for start in range(0, n, args.batch):
-        batch = items[start:start + args.batch]
+    for start in range(0, n, local_batch):
+        batch = items[start:start + local_batch]
         names = [name for name, _, _ in batch]
         images = torch.stack([transform_image(load_image_rgb(path), stack.input_size)[0]
                               for _, path, _ in batch]).to(pipe.device)
@@ -383,10 +391,10 @@ def adapt_batches(args, stack: EditStack, adapter: ImageAdapter,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    from rgie_tpu_torch.device import require_single_process, resolve_device
+    from rgie_tpu_torch.parallel import process_device, split_batch
 
-    device = resolve_device(args.device)
-    require_single_process("the diffusion CLI")
+    split_batch(args.batch)
+    device = process_device(args.device)
 
     from rgie_tpu_torch.config import DATA_DIR, OUT_DIR
 

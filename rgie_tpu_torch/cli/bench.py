@@ -15,9 +15,14 @@ TFLOP/s and MFU, the FLOPs of one value-and-grad objective step being
 counted by ``torch.utils.flop_counter.FlopCounterMode`` (matmuls and
 convolutions) and the MFU taken against the H100's dense peak of the type
 that runs; with the device's name, power limit, the torch and CUDA versions
-and the peak memory. Device figures are null on the CPU. ``--profile``
-instead profiles that objective step under ``torch.profiler`` (device time
-summed by kernel; CUDA only).
+and the peak memory, and appends it to ``artifacts/bench_history_torch.jsonl``
+(``utils/bench_history.py``). Device figures are null on the CPU.
+
+``--profile`` instead profiles ``--steps`` of those objective steps under
+``torch.profiler`` (device time summed by kernel, the ``--top`` kernels
+printed; CUDA only); ``--logdir DIR`` also writes the chrome trace there,
+and ``--parse-only`` prints the top kernels of the trace in ``--logdir``
+without running anything (the flags of ``scripts/profile_param_edit.py``).
 """
 
 from __future__ import annotations
@@ -50,9 +55,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="bfloat16")
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--profile", action="store_true",
-                    help="profile one value-and-grad objective step instead of timing the edit")
+    add_profile_flags(ap)
     return ap
+
+
+def add_profile_flags(ap: argparse.ArgumentParser) -> None:
+    """``--profile`` and the flags of ``scripts/profile_param_edit.py``."""
+    from rgie_tpu_torch.cli.profile_adapt_images import TOP_KERNELS
+
+    ap.add_argument("--profile", action="store_true",
+                    help="profile value-and-grad objective steps instead of timing the edit")
+    ap.add_argument("--steps", type=int, default=1,
+                    help="objective steps in the profiled window (with --profile)")
+    ap.add_argument("--top", type=int, default=TOP_KERNELS, help="kernels printed")
+    ap.add_argument("--logdir", default=None,
+                    help="write the profile's chrome trace (trace.json) here")
+    ap.add_argument("--parse-only", action="store_true",
+                    help="print the top kernels of the trace in --logdir and exit")
 
 
 def device_info(device: torch.device) -> dict:
@@ -87,14 +106,18 @@ def step_flops(step: Callable[[], None]) -> float:
     return float(counter.get_total_flops())
 
 
-def profile_step(step: Callable[[], None], what: str, device: torch.device) -> None:
-    """``--profile``: the device's name and power limit, then ``step`` after a
-    warm-up, timed and under torch.profiler (cli/profile_adapt_images.py)."""
+def profile_step(step: Callable[[], None], what: str, device: torch.device, args) -> None:
+    """``--profile``: the device's name and power limit, then ``args.steps``
+    calls of ``step`` after a warm-up, timed and under torch.profiler
+    (cli/profile_adapt_images.py)."""
     from rgie_tpu_torch.cli.profile_adapt_images import profile_phase
 
     info = device_info(device)
     print(f"{info['device']}, {info['power_limit']}; torch {info['torch']}, CUDA {info['cuda']}")
-    profile_phase(what, step)
+    if args.steps > 1:
+        what = f"{args.steps} x {what}"
+        one, step = step, lambda: [one() for _ in range(args.steps)]
+    profile_phase(what, step, top=args.top, logdir=args.logdir)
 
 
 def time_edit(make_edit: Callable, cfg, images: torch.Tensor, alphas: torch.Tensor,
@@ -182,17 +205,23 @@ def run(models: P.EditModels, cfg: ParamEditConfig, images: torch.Tensor, alphas
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
+    from rgie_tpu_torch.cli.profile_adapt_images import parse_trace
     from rgie_tpu_torch.device import resolve_device
+    from rgie_tpu_torch.utils.bench_history import record
 
+    if args.parse_only:
+        parse_trace(args.logdir, args.top)
+        return
     device = resolve_device(args.device)
     models, cfg, images, alphas = build(args.batch, DTYPES[args.dtype], args.remat, device)
     if args.profile:
         profile_step(objective_step(models, cfg, images, alphas),
                      f"parametric objective step ({IMAGE_SIZE} px, batch {args.batch}, "
-                     f"{args.dtype})", device)
+                     f"{args.dtype})", device, args)
         return
     row, _, _ = run(models, cfg, images, alphas)
     print(json.dumps(row), flush=True)
+    record("cli.bench", row)
 
 
 if __name__ == "__main__":

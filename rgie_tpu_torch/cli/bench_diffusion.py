@@ -214,6 +214,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         },
     }
     print(json.dumps(row), flush=True)
+    from rgie_tpu_torch.utils.bench_history import record
+
+    record("cli.bench_diffusion", row)
     return row
 
 

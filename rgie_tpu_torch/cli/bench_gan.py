@@ -12,8 +12,10 @@ float32). Random weights from ``--seed``: the shipped MUNIT width
 
 Prints one JSON line with the fields of ``rgie_tpu_torch.cli.bench``; the
 FLOPs are those of one value-and-grad objective step with the content and
-style codes computed beforehand (the edit encodes once, not per step).
-``--profile`` profiles that step instead, as ``cli.bench --profile`` does.
+style codes computed beforehand (the edit encodes once, not per step), and
+appends it to ``artifacts/bench_history_torch.jsonl``. ``--profile`` (with
+``--steps``, ``--top``, ``--logdir``, ``--parse-only``) profiles that step
+instead, as ``cli.bench --profile`` does.
 """
 
 from __future__ import annotations
@@ -24,8 +26,8 @@ from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
-from rgie_tpu_torch.cli.bench import (DTYPES, SEED, profile_step, report, step_flops,
-                                      time_edit, value_and_grad_step)
+from rgie_tpu_torch.cli.bench import (DTYPES, SEED, add_profile_flags, profile_step, report,
+                                      step_flops, time_edit, value_and_grad_step)
 from rgie_tpu_torch.config import GanEditConfig, MunitGenConfig, OptimizeConfig
 from rgie_tpu_torch.engine import gan as GE
 from rgie_tpu_torch.engine.optimize import OptResult
@@ -41,8 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dtype", choices=tuple(DTYPES), default="bfloat16")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    ap.add_argument("--profile", action="store_true",
-                    help="profile one value-and-grad objective step instead of timing the edit")
+    add_profile_flags(ap)
     return ap
 
 
@@ -89,18 +90,24 @@ def run(models: GE.GanEditModels, cfg: GanEditConfig, images: torch.Tensor,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
+    from rgie_tpu_torch.cli.profile_adapt_images import parse_trace
     from rgie_tpu_torch.device import resolve_device
+    from rgie_tpu_torch.utils.bench_history import record
 
+    if args.parse_only:
+        parse_trace(args.logdir, args.top)
+        return
     device = resolve_device(args.device)
     models, cfg, images, alphas = build(args.batch, DTYPES[args.dtype], args.remat,
                                         args.num_steps, args.size, device)
     if args.profile:
         profile_step(objective_step(models, cfg, images, alphas),
                      f"MUNIT objective step ({args.size} px, batch {args.batch}, {args.dtype})",
-                     device)
+                     device, args)
         return
     row, _, _ = run(models, cfg, images, alphas, args.runs)
     print(json.dumps(row), flush=True)
+    record("cli.bench_gan", row)
 
 
 if __name__ == "__main__":

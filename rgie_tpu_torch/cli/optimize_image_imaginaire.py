@@ -8,10 +8,11 @@ Per adaptation alpha, each batch of ``--batch`` images (in [-1, 1]) has the
 8-dim style codes of a frozen MUNIT autoencoder optimized in lockstep so the
 decoded images reach VA(original) + alpha, with L1 content reconstruction;
 then the edits are evaluated and saved as JPEGs. Missing checkpoints give
-random-weight stand-ins with a WARNING. Runs on one device: ``--device
-cuda`` fails when CUDA is missing, and the CPU is used only for ``--device
-cpu``. Several processes (sharding the feed over a mesh) come with the
-multi-device slice F.
+random-weight stand-ins with a WARNING. ``--device cuda`` fails when CUDA
+is missing, and the CPU is used only for ``--device cpu``. Several processes
+(``torchrun --nproc_per_node N``, one card each): ``--batch`` is the global
+batch and must divide over them; rank p edits feed items p, p+N, ...
+(``ShardedView``) and writes their outputs.
 """
 
 from __future__ import annotations
@@ -44,7 +45,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hinge realism term relu(-gan_loss) "
                          "(reference: optimize_image_imaginaire.py:132-137)")
     ap.add_argument("--input-size", type=int, default=1024)
-    ap.add_argument("--batch", type=int, default=1, help="images edited in lockstep")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch, edited in lockstep (default: one per process)")
     ap.add_argument("--limit", type=int, default=500)
     ap.add_argument("--adaptations",
                     default="pos_01:0.1,pos_02:0.2,neg_01:-0.1,neg_02:-0.1,neutral:0.0")
@@ -97,16 +99,18 @@ def make_config(args) -> GanEditConfig:
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    from rgie_tpu_torch.device import require_single_process, resolve_device
+    from rgie_tpu_torch.parallel import (create_hybrid_mesh, process_device, process_info,
+                                         split_batch)
 
-    device = resolve_device(args.device)
-    require_single_process("the MUNIT edit")
+    local_batch = split_batch(args.batch or create_hybrid_mesh().size)
+    device = process_device(args.device)
+    pid, nproc = process_info()
 
     from PIL import Image
 
     from rgie_tpu_torch.cli.optimize_image_param import parse_adaptations
     from rgie_tpu_torch.config import DATA_DIR, OUT_DIR
-    from rgie_tpu_torch.data import CaptionFeedDataset, iterate_batches
+    from rgie_tpu_torch.data import CaptionFeedDataset, ShardedView, iterate_batches
     from rgie_tpu_torch.engine import parametric as P
     from rgie_tpu_torch.utils import stats as S
 
@@ -119,11 +123,12 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     edit = GE.make_batched_edit(models, cfg)
     evaluate = P.make_evaluate(models.va_loss)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    dataset = CaptionFeedDataset(data_dir)
+    dataset = ShardedView(CaptionFeedDataset(data_dir), pid, nproc)
     stats = {}
 
-    for images_np, metas in iterate_batches(dataset, args.batch, args.input_size,
-                                            args.input_size, normalize=True, limit=args.limit):
+    for images_np, metas in iterate_batches(dataset, local_batch, args.input_size,
+                                            args.input_size, normalize=True,
+                                            limit=dataset.local_count(args.limit)):
         images = torch.from_numpy(images_np).to(device)
         for name, alpha in parse_adaptations(args.adaptations):
             S.check_init_stats_adapt(stats, name)
@@ -145,6 +150,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     os.path.join(out_dir, f"{base}_{name}.jpg"))
             print(f"[{name}] batch of {len(metas)} edited in {dt:.2f}s")
 
+    if nproc > 1:
+        print(f"[process {pid}/{nproc}] per-process stats follow")
     print(f"weight_clf: {args.weight_clf}; weight_dis: {args.weight_dis}; "
           f"weight_recon: {args.weight_recon}")
     S.print_stats(stats)

@@ -6,8 +6,13 @@ src/optimize_image_param.py; flags replace its constant block at :30-59).
 
 Per adaptation alpha, each batch of ``--batch`` images is edited in lockstep
 (``edit_batch``: edit, evaluate, re-render at ``--output-size`` through the
-fused pointwise kernel). Runs on one device; ``--device cuda`` fails when
-CUDA is missing, and the CPU is used only for ``--device cpu``.
+fused pointwise kernel). ``--device cuda`` fails when CUDA is missing, and
+the CPU is used only for ``--device cpu``.
+
+Several processes (``torchrun --nproc_per_node N``, one card each): ``--batch``
+is the global batch and must divide over them; rank p edits feed items p,
+p+N, ... (``ShardedView``) and writes their outputs; each process prints its
+own stats. The gradient-free path stays host-local, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -48,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--output-size", type=int, default=1024,
                     help="full-resolution re-render size (reference output_transform, "
                          "optimize_image_param.py:77-81,295-312); 0 disables")
-    ap.add_argument("--batch", type=int, default=1, help="images edited in lockstep")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch, edited in lockstep (default: one per process)")
     ap.add_argument("--limit", type=int, default=500, help="dataset cap (reference: optimize_image.py:25)")
     ap.add_argument("--adaptations", default="pos_01:0.1,pos_02:0.2,neg_01:-0.1,neg_02:-0.1,neutral:0.0")
     ap.add_argument("--gradient-free", action="store_true", help="Nelder-Mead instead of Adam")
@@ -170,15 +176,18 @@ def gradient_free_edit(models: P.EditModels, cfg: ParamEditConfig, image: torch.
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
-    from rgie_tpu_torch.device import resolve_device
+    from rgie_tpu_torch.parallel import (create_hybrid_mesh, process_device, process_info,
+                                         split_batch)
 
-    device = resolve_device(args.device)
+    local_batch = split_batch(args.batch or create_hybrid_mesh().size)
+    device = process_device(args.device)
+    pid, nproc = process_info()
 
     from PIL import Image
 
     from rgie_tpu_torch.config import DATA_DIR, OUT_DIR
-    from rgie_tpu_torch.data import (CaptionFeedDataset, iterate_batches, load_image_rgb,
-                                     preprocess_image)
+    from rgie_tpu_torch.data import (CaptionFeedDataset, ShardedView, iterate_batches,
+                                     load_image_rgb, preprocess_image)
     from rgie_tpu_torch.utils import stats as S
 
     data_dir = args.data_dir or str(DATA_DIR)
@@ -189,11 +198,11 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     models = build_models(args, generator, device)
     cfg = make_config(args)
     adaptations = parse_adaptations(args.adaptations)
-    dataset = CaptionFeedDataset(data_dir)
+    dataset = ShardedView(CaptionFeedDataset(data_dir), pid, nproc)
     stats = {}
 
-    for images_np, metas in iterate_batches(dataset, args.batch, args.input_size,
-                                            args.crop_size, limit=args.limit):
+    for images_np, metas in iterate_batches(dataset, local_batch, args.input_size,
+                                            args.crop_size, limit=dataset.local_count(args.limit)):
         images = torch.from_numpy(images_np).to(device)
         full = None
         if args.output_size:
@@ -232,6 +241,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             n = len(metas)
             print(f"[{name}] batch of {n} edited in {dt:.2f}s ({n / dt:.3f} img/s)")
 
+    if nproc > 1:
+        print(f"[process {pid}/{nproc}] per-process stats follow")
     print(f"weight_clf: {args.weight_clf}; weight_dis: {args.weight_dis}; "
           f"weight_recon: {args.weight_recon}")
     S.print_stats(stats)

@@ -21,6 +21,8 @@ shares.
 
 from __future__ import annotations
 
+import json
+import os
 import subprocess
 import time
 from typing import Callable, Optional, Sequence
@@ -34,9 +36,14 @@ from rgie_tpu_torch.diffusion.pipeline import SdxlCond
 from rgie_tpu_torch.diffusion.text_encoder import get_add_time_ids
 
 TOP_KERNELS = 12
+TRACE_FILE = "trace.json"
 
 
-def profile_phase(name: str, fn: Callable[[], object]) -> None:
+def profile_phase(name: str, fn: Callable[[], object], top: int = TOP_KERNELS,
+                  logdir: Optional[str] = None) -> None:
+    """One call of ``fn`` after a warm-up, timed, then one under
+    torch.profiler: device time summed by kernel, the ``top`` kernels
+    printed; with ``logdir``, the chrome trace written there as trace.json."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -51,6 +58,9 @@ def profile_phase(name: str, fn: Callable[[], object]) -> None:
         fn()
         torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    if logdir:
+        os.makedirs(logdir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(logdir, TRACE_FILE))
     # Kernel rows only: the operator rows repeat their kernels' device time.
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
@@ -59,8 +69,32 @@ def profile_phase(name: str, fn: Callable[[], object]) -> None:
     print(f"{name}: wall {wall_ms:.1f} ms, device busy {total:.1f} ms, flash-attention kernels "
           f"{flash:.1f} ms ({100 * flash / max(total, 1e-9):.1f}%), peak memory "
           f"{peak / 2**30:.2f} GiB")
-    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:TOP_KERNELS]:
-        print(f"  {100 * ms / total:5.1f}%  {ms:9.2f} ms  x{count:<4d} {key[:110]}")
+    print_kernels(rows, top)
+
+
+def print_kernels(rows, top: int) -> None:
+    """(name, device ms, launches) rows: the ``top`` by time, with shares."""
+    total = sum(ms for _, ms, _ in rows)
+    for key, ms, count in sorted(rows, key=lambda r: -r[1])[:top]:
+        print(f"  {100 * ms / max(total, 1e-9):5.1f}%  {ms:9.2f} ms  x{count:<4d} {key[:110]}")
+
+
+def parse_trace(logdir: str, top: int = TOP_KERNELS) -> None:
+    """The ``top`` device kernels of the chrome trace ``profile_phase`` wrote
+    to ``logdir``, by total time (``--parse-only``)."""
+    if not logdir:
+        raise SystemExit("--parse-only reads the trace under --logdir: name that directory")
+    with open(os.path.join(logdir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            ms, count = by_name.get(e["name"], (0.0, 0))
+            by_name[e["name"]] = (ms + e.get("dur", 0) / 1e3, count + 1)
+    rows = [(name, ms, count) for name, (ms, count) in by_name.items()]
+    print(f"{os.path.join(logdir, TRACE_FILE)}: {len(rows)} kernels, device time "
+          f"{sum(ms for _, ms, _ in rows):.1f} ms")
+    print_kernels(rows, top)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

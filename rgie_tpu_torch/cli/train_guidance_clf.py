@@ -25,8 +25,14 @@ float32.
 train_guidance_clf.py:52-54,89-98), where the VAE's mid-block attention
 (16384 positions) runs through the flash-attention forward kernel. The
 port's ``MiduSDXL`` reads 32 x 32 mid features only, so ``tiny-xl`` needs
-``--image-size 128``. Runs on one device (``--device cuda``, the default, or
-``cpu``); a multi-process launch is refused until slice F.
+``--image-size 128``. Runs on ``--device cuda`` (the default) or ``cpu``.
+
+Several processes (``torchrun --nproc_per_node N``, one card each):
+``--batch-size`` is the global batch and must divide over them. Each rank
+draws its own rows and noise (its generators folded with its rank; with
+``--data-dir``, feed items p, p+N, ...), the gradients and the losses are
+averaged over the ranks before each Adam step (DDP, so every rank keeps the
+same midu), and rank 0 alone writes the checkpoint.
 """
 
 from __future__ import annotations
@@ -58,6 +64,9 @@ SCALES = {
 #: The empty prompt of the frozen feature pass: zero embeddings of this many
 #: tokens, as in the JAX CLI.
 CONTEXT_LEN = 8
+#: A rank's data and validation generators are seeded ``RANK_FOLD * rank``
+#: past rank 0's (the JAX CLI folds ``pid * 100003`` into its keys).
+RANK_FOLD = 100003
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "the teacher and the midu run in float32")
     ap.add_argument("--setting", choices=("va", "valence", "arousal"), default="va")
     ap.add_argument("--epochs", type=int, default=100)
-    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--batch-size", type=int, default=8, help="global batch")
     ap.add_argument("--learning-rate", type=float, default=1e-5)
     ap.add_argument("--weight-decay", type=float, default=5e-5)
     ap.add_argument("--num-batches", type=int, default=16, help="train batches per epoch")
@@ -171,35 +180,41 @@ def features_and_labels(stack: TrainStack, generator: torch.Generator, images: t
 
 def image_batches(args, image_size: int, generator: torch.Generator, n_batches: int,
                   device: torch.device) -> Iterator[torch.Tensor]:
-    """``n_batches`` batches of ``--batch-size`` images (B, H, W, 3) in [0, 1]:
-    the feed's, full batches only, or random ones from ``generator``."""
+    """``n_batches`` batches of this process's share of ``--batch-size``
+    images (B, H, W, 3) in [0, 1]: the feed's (its items p, p+N, ... of N
+    processes), full batches only, or random ones from ``generator``."""
+    from rgie_tpu_torch.parallel import process_info, split_batch
+
+    batch = split_batch(args.batch_size, "--batch-size")
     if args.data_dir and os.path.exists(args.data_dir):
-        from rgie_tpu_torch.data import CaptionFeedDataset, iterate_batches
+        from rgie_tpu_torch.data import CaptionFeedDataset, ShardedView, iterate_batches
 
         count = 0
-        for imgs, _ in iterate_batches(CaptionFeedDataset(args.data_dir), args.batch_size,
-                                       image_size, image_size):
+        for imgs, _ in iterate_batches(ShardedView(CaptionFeedDataset(args.data_dir),
+                                                   *process_info()),
+                                       batch, image_size, image_size):
             if count >= n_batches:
                 break
-            if imgs.shape[0] == args.batch_size:
+            if imgs.shape[0] == batch:
                 yield torch.from_numpy(imgs).to(device)
                 count += 1
         return
     for _ in range(n_batches):
-        yield torch.rand((args.batch_size, image_size, image_size, 3),
-                         generator=generator).to(device)
+        yield torch.rand((batch, image_size, image_size, 3), generator=generator).to(device)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> TrainStack:
     """Train; returns the frozen stack the run used."""
     args = build_parser().parse_args(argv)
-    from rgie_tpu_torch.device import require_single_process, resolve_device
+    from rgie_tpu_torch.parallel import (all_mean, is_main_process, process_device,
+                                         process_info, split_batch)
     from rgie_tpu_torch.training.train_midu import (create_train_state, make_eval_step,
-                                                    make_train_step)
+                                                    shard_train_step)
     from rgie_tpu_torch.utils.checkpoint import BestCheckpointer
 
-    device = resolve_device(args.device)
-    require_single_process("midu training")
+    split_batch(args.batch_size, "--batch-size")
+    device = process_device(args.device)
+    pid = process_info()[0]
     cfg = TrainGuidanceConfig(setting=args.setting, batch_size=args.batch_size,
                               learning_rate=args.learning_rate,
                               weight_decay=args.weight_decay, num_epochs=args.epochs,
@@ -208,10 +223,10 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainStack:
     stack, midu = build_models(args, torch.Generator().manual_seed(args.seed), device)
     print(f"models built at --scale {args.scale}, {stack.image_size} px, in "
           f"{time.perf_counter() - t0:.1f} s")
-    state = create_train_state(midu, cfg)
-    train_step, eval_step = make_train_step(), make_eval_step()
-    data = torch.Generator().manual_seed(args.seed + 1)
-    ckpt = BestCheckpointer(args.out_dir)
+    train_step, state = shard_train_step(create_train_state(midu, cfg))
+    eval_step = make_eval_step()
+    data = torch.Generator().manual_seed(args.seed + 1 + RANK_FOLD * pid)
+    ckpt = BestCheckpointer(args.out_dir) if is_main_process() else None
     for epoch in range(cfg.num_epochs):
         t0 = time.perf_counter()
         train_losses = []
@@ -220,18 +235,21 @@ def main(argv: Optional[Sequence[str]] = None) -> TrainStack:
             state, loss, _ = train_step(state, feats, labels)
             train_losses.append(float(loss))
         # The same validation images and noise every epoch.
-        val = torch.Generator().manual_seed(args.seed + 2)
+        val = torch.Generator().manual_seed(args.seed + 2 + RANK_FOLD * pid)
         val_losses = []
         for images in image_batches(args, stack.image_size, val, args.val_batches, device):
             feats, labels = features_and_labels(stack, val, images)
             loss, _ = eval_step(state.model, feats, labels)
             val_losses.append(float(loss))
-        val_loss = float(np.mean(val_losses))
-        saved = ckpt.maybe_save(val_loss, state.model, state.step)
+        # Every rank's validation rows count, as in the JAX CLI's global eval.
+        val_loss = float(all_mean(torch.tensor(np.mean(val_losses), dtype=torch.float64,
+                                               device=device)))
+        saved = ckpt is not None and ckpt.maybe_save(val_loss, state.model, state.step)
         print(f"epoch {epoch + 1}/{cfg.num_epochs} train {np.mean(train_losses):.5f} val "
               f"{val_loss:.5f} {'(best saved)' if saved else ''} "
               f"[{time.perf_counter() - t0:.1f}s]")
-    print(f"best val loss: {ckpt.best_loss:.5f} at {ckpt.best_path}")
+    if ckpt is not None:
+        print(f"best val loss: {ckpt.best_loss:.5f} at {ckpt.best_path}")
     return stack
 
 

@@ -1,7 +1,7 @@
 """The captions-feed, COCO-captions and image-directory datasets and host-side
-image preprocessing: the port's own copy of the parts of
-``rgie_tpu/data/dataset.py`` that its entry points use, on the pure-PIL path
-(numpy out, no framework).
+image preprocessing, the rank's view of a dataset and the training-time
+augmentations: the port's own copy of ``rgie_tpu/data/dataset.py``, on the
+pure-PIL path (numpy out, no framework).
 
 Reference: ``src/datasets/Dataloader.py`` (captions.json map of
 {12-digit-id: caption} + images dir) and ``CocoCaptions.py`` (the COCO
@@ -102,6 +102,40 @@ class ImageDirectoryDataset:
         return load_image_rgb(path), (os.path.basename(path), path, "")
 
 
+class ShardedView:
+    """Rank-interleaved view of a dataset for multi-process runs: process p of
+    n sees items p, p+n, p+2n, ...
+
+    Every process reports the SAME length (ceil(N / n)), so ranks that step
+    in lockstep (midu training's gradient all-reduce) run the same number of
+    batches. Trailing ranks whose shard is one item short clamp to the last
+    dataset item; ``local_count`` counts a rank's own items without that
+    clamp, for the edit CLIs, which need no lockstep and write each output
+    once."""
+
+    def __init__(self, dataset, process_index: int, process_count: int):
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} out of range "
+                             f"for process_count {process_count}")
+        self.dataset = dataset
+        self.offset = process_index
+        self.stride = process_count
+
+    def __len__(self) -> int:
+        return -(-len(self.dataset) // self.stride)
+
+    def __getitem__(self, ix: int):
+        if ix >= len(self):
+            raise IndexError(ix)
+        return self.dataset[min(self.offset + ix * self.stride, len(self.dataset) - 1)]
+
+    def local_count(self, limit: Optional[int] = None) -> int:
+        """This rank's own items among the dataset's first ``limit`` (all
+        without a limit): its leading ``local_count`` items, no clamp."""
+        n = len(self.dataset) if limit is None else min(limit, len(self.dataset))
+        return len(range(self.offset, n, self.stride))
+
+
 def first_caption(joined: str) -> str:
     """The adapter uses the first of the '/'-joined captions (adapt_images.py:72)."""
     return joined.split("/")[0]
@@ -146,3 +180,29 @@ def iterate_batches(dataset, batch_size: int, input_size: int, crop_size: int,
             batch_imgs, batch_meta = [], []
     if batch_imgs:
         yield np.stack(batch_imgs), batch_meta
+
+
+def augment_image(image: np.ndarray, rng: np.random.Generator,
+                  resize_hw: Optional[Tuple[int, int]] = None,
+                  random_crop_hw: Optional[Tuple[int, int]] = None,
+                  horizontal_flip: bool = False) -> np.ndarray:
+    """Training-time augmentations matching the reference's pipelines: the
+    imaginaire Augmentor's resize/random-crop/hflip subset
+    (external/imaginaire/utils/data.py:28-437; imagenet2imagenet.yaml:109-115)
+    and torchvision's RandomCrop/RandomHorizontalFlip
+    (EmotionPredictionModel.get_emo_pred_random_transform:120-133)."""
+    from PIL import Image
+
+    if resize_hw is not None:
+        pil = Image.fromarray((np.clip(image, 0, 1) * 255).astype(np.uint8))
+        pil = pil.resize((resize_hw[1], resize_hw[0]), Image.BILINEAR)
+        image = np.asarray(pil, dtype=np.float32) / 255.0
+    if random_crop_hw is not None:
+        ch, cw = random_crop_hw
+        h, w = image.shape[:2]
+        top = int(rng.integers(0, max(1, h - ch + 1)))
+        left = int(rng.integers(0, max(1, w - cw + 1)))
+        image = image[top:top + ch, left:left + cw]
+    if horizontal_flip and rng.random() < 0.5:
+        image = image[:, ::-1]
+    return np.ascontiguousarray(image)

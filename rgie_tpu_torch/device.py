@@ -6,8 +6,6 @@ CPU when CUDA is missing. The CPU is used only when the caller asks for it.
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 
@@ -27,14 +25,3 @@ def resolve_device(name: str) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     return device
 
-
-def require_single_process(what: str) -> None:
-    """Refuse a multi-process launch (``WORLD_SIZE`` or the JAX package's
-    ``RGIE_NUM_PROCESSES`` above 1, or an ``RGIE_COORDINATOR``) instead of
-    doing the whole work once per process: sharding it over processes is
-    slice F's."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    jax_style = int(os.environ.get("RGIE_NUM_PROCESSES", "1"))
-    if world > 1 or jax_style > 1 or os.environ.get("RGIE_COORDINATOR"):
-        raise RuntimeError(f"multi-process runs of {what} are not ported yet: they come with the "
-                           "multi-device slice F (rgie_tpu/parallel)")

@@ -16,9 +16,11 @@ import dataclasses
 from typing import Iterable, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from rgie_tpu_torch.config import TrainGuidanceConfig
+from rgie_tpu_torch.parallel.mesh import all_mean
 
 
 @dataclasses.dataclass
@@ -47,9 +49,11 @@ def _mse(out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean((out - labels) ** 2)
 
 
-def make_train_step():
+def make_train_step(average_gradients: bool = False):
     """``train_step(state, features, labels) -> (state, loss, predictions)``:
-    one Adam step on the MSE to the labels."""
+    one Adam step on the MSE to the labels. With ``average_gradients`` the
+    gradients and the loss are averaged over the processes before the step
+    (``shard_train_step``)."""
 
     def train_step(state: TrainState, features: torch.Tensor, labels: torch.Tensor):
         state.optimizer.zero_grad(set_to_none=True)
@@ -57,11 +61,42 @@ def make_train_step():
             out = state.model(features)
             loss = _mse(out, labels)
             loss.backward()
+        loss = loss.detach()
+        if average_gradients:
+            loss = _all_mean_gradients(state.model, loss)
         state.optimizer.step()
         state.step += 1
-        return state, loss.detach(), out.detach()
+        return state, loss, out.detach()
 
     return train_step
+
+
+def _all_mean_gradients(model: nn.Module, loss: torch.Tensor) -> torch.Tensor:
+    """Every gradient of ``model`` and ``loss`` replaced by their mean over the
+    processes, in one all-reduce of them all flattened; returns the mean
+    loss."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = all_mean(torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).to(grads[0])]))
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[-1].to(loss.dtype)
+
+
+def shard_train_step(state: TrainState):
+    """The DDP counterpart of JAX's ``shard_train_step``: every rank starts
+    from rank 0's midu (a broadcast of its parameters), and the step averages
+    the gradients over the processes before Adam, so its update equals a
+    one-process step on the union of the ranks' rows and every rank keeps
+    the same midu. Returns ``(train_step, state)``; one process gets the
+    plain step."""
+    if not dist.is_initialized():
+        return make_train_step(), state
+    with torch.no_grad():
+        for p in state.model.parameters():
+            dist.broadcast(p, src=0)
+    return make_train_step(average_gradients=True), state
 
 
 def make_eval_step():

@@ -2,16 +2,47 @@
 and imaginaire's MUNIT checkpoint with its spectral norms folded into the
 kernels (the port's own copies of ``realize_spectral_norm`` and
 ``filter_imaginaire_states`` of ``rgie_tpu/utils/torch_convert.py``);
-writing the best midu of a training run (``BestCheckpointer``)."""
+writing the best midu of a training run (``BestCheckpointer``); saving and
+restoring a state tree with its step, and the resume manifest of a dataset
+edit run (``EditManifest``), after ``rgie_tpu/utils/checkpoint.py``."""
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Set
 
 import torch
 import torch.nn as nn
+
+
+#: The file a ``save_checkpoint`` directory holds.
+STATE_FILE = "state.pt"
+
+
+def save_checkpoint(path: str, tree: Any, step: Optional[int] = None) -> str:
+    """``torch.save`` of a state tree (nested dicts, lists and tensors: a
+    ``state_dict``, an optimizer's, ...) with its step, into the directory
+    ``path`` (``path/step_<step>`` when a step is given, as the JAX package's
+    orbax checkpoints are laid out). Returns the directory."""
+    path = Path(path).absolute()
+    if step is not None:
+        path = path / f"step_{step}"
+    path.mkdir(parents=True, exist_ok=True)
+    torch.save({"tree": tree, "step": step}, path / STATE_FILE)
+    return str(path)
+
+
+def load_checkpoint(path: str, target: Optional[Any] = None) -> Any:
+    """The tree ``save_checkpoint`` wrote to ``path``, on the CPU; with a
+    ``target`` (a module or an optimizer), loaded into it with
+    ``load_state_dict`` and the target returned."""
+    tree = torch.load(Path(path).absolute() / STATE_FILE, map_location="cpu",
+                      weights_only=True)["tree"]
+    if target is None:
+        return tree
+    target.load_state_dict(tree)
+    return target
 
 
 def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -126,3 +157,39 @@ class BestCheckpointer:
                 json.dump({"val_loss": val_loss, "step": step}, f)
             return True
         return False
+
+
+class EditManifest:
+    """Idempotent record of completed (image, adaptation) edits, JSON lines on
+    disk, so a dataset run that stopped resumes where it stopped. The lines
+    are the JAX package's (``{"key": "<image>::<adaptation>", ...extra}``):
+    either package reads the other's."""
+
+    def __init__(self, path: str):
+        self.path = Path(path)
+        self.done: Set[str] = set()
+        if self.path.exists():
+            with open(self.path) as f:
+                for line in f:
+                    try:
+                        self.done.add(json.loads(line)["key"])
+                    except (json.JSONDecodeError, KeyError, TypeError):
+                        continue    # a line cut short by the stop
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self._fh = open(self.path, "a")
+
+    @staticmethod
+    def key(image_name: str, adaptation: str) -> str:
+        return f"{image_name}::{adaptation}"
+
+    def is_done(self, image_name: str, adaptation: str) -> bool:
+        return self.key(image_name, adaptation) in self.done
+
+    def mark(self, image_name: str, adaptation: str, **extra) -> None:
+        k = self.key(image_name, adaptation)
+        self.done.add(k)
+        self._fh.write(json.dumps({"key": k, **extra}) + "\n")
+        self._fh.flush()
+
+    def close(self) -> None:
+        self._fh.close()

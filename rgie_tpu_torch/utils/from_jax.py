@@ -362,6 +362,16 @@ def midu_state_dict(flax_variables: Mapping[str, Any], is_sdxl: bool = False
     return sd
 
 
+def _put_munit_block(sd, dst, src):
+    """A JAX munit ``ConvBlock`` -> the port's imaginaire-keyed one."""
+    _put_conv(sd, f"{dst}.layers.conv", src["conv"])
+    norm = src.get("norm")
+    if norm is not None and "fc" in norm:
+        _put_linear(sd, f"{dst}.layers.norm.fc.layers.conv", norm["fc"])
+    elif norm is not None:
+        _put_norm(sd, f"{dst}.layers.norm", norm)
+
+
 def munit_state_dict(flax_variables: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
     """{'params'} of ``rgie_tpu.models.munit.AutoEncoder`` (one domain) ->
     imaginaire-keyed ``rgie_tpu_torch.models.munit.AutoEncoder`` state dict
@@ -371,12 +381,7 @@ def munit_state_dict(flax_variables: Mapping[str, Any], cfg) -> Dict[str, torch.
     sd: Dict[str, torch.Tensor] = {}
 
     def block(dst, src):
-        _put_conv(sd, f"{dst}.layers.conv", src["conv"])
-        norm = src.get("norm")
-        if norm is not None and "fc" in norm:
-            _put_linear(sd, f"{dst}.layers.norm.fc.layers.conv", norm["fc"])
-        elif norm is not None:
-            _put_norm(sd, f"{dst}.layers.norm", norm)
+        _put_munit_block(sd, dst, src)
 
     se, n_style = p["style_encoder"], 1 + cfg.num_downsamples_style
     for i in range(n_style):
@@ -411,4 +416,56 @@ def multires_patch_discriminator_state_dict(flax_variables: Mapping[str, Any],
     for i in range(len(p)):
         for n in range(num_layers + 2):
             _put_conv(sd, f"discriminators.{i}.layer{n}.0.layers.conv", p[f"dis_{i}"][f"layer{n}"])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# models/layers.py
+# ---------------------------------------------------------------------------
+
+# Flax kernel layouts -> torch: (in, out), (W, I, O), HWIO and DHWIO.
+_KERNEL_PERMS = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+
+
+def layer_state_dict(flax_variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params'} of a layer of ``rgie_tpu/models/layers.py`` (all but the
+    UNIT autoencoder: ``unit_autoencoder_state_dict``) -> the port layer's
+    state dict. The port's layers carry Flax's names; kernels are laid out
+    for torch and ``nn.Embed``'s table becomes ``weight``."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def walk(prefix: str, tree: Mapping[str, Any]) -> None:
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                walk(f"{prefix}{name}.", value)
+            elif name == "kernel":
+                a = np.asarray(value)
+                sd[f"{prefix}weight"] = _t(a.transpose(_KERNEL_PERMS[a.ndim]))
+            else:
+                sd[prefix + ("weight" if name == "embedding" else name)] = _t(value)
+
+    walk("", flax_variables["params"])
+    return sd
+
+
+def unit_autoencoder_state_dict(flax_variables: Mapping[str, Any], cfg
+                                ) -> Dict[str, torch.Tensor]:
+    """{'params'} of ``rgie_tpu.models.layers.UnitAutoEncoder`` -> the port's
+    ``UnitAutoEncoder`` state dict (its content encoder as MUNIT's). ``cfg``
+    is the ``MunitGenConfig``."""
+    p = flax_variables["params"]
+    ce, de = p["content_encoder"], p["decoder"]
+    sd: Dict[str, torch.Tensor] = {}
+    n_content = 1 + cfg.num_downsamples_content
+    for i in range(n_content):
+        _put_munit_block(sd, f"content_encoder.model.{i}", ce[f"layer_{i}"])
+    for r in range(cfg.num_res_blocks):
+        for b in (0, 1):
+            _put_munit_block(sd, f"content_encoder.model.{n_content + r}.conv_block_{b}",
+                             ce[f"res_{r}"][f"conv_block_{b}"])
+            _put_munit_block(sd, f"decoder.res_{r}.conv_block_{b}",
+                             de[f"res_{r}"][f"conv_block_{b}"])
+    for k in range(cfg.num_downsamples_content):
+        _put_munit_block(sd, f"decoder.up_{k}", de[f"up_{k}"])
+    _put_munit_block(sd, "decoder.out", de["out"])
     return sd

@@ -395,13 +395,15 @@ def test_cli_device_cuda_raises_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("variable", ["WORLD_SIZE", "RGIE_NUM_PROCESSES"])
 def test_cli_refuses_a_multi_process_launch(tmp_path, monkeypatch, variable):
-    """The diffusion CLI runs on one device: a launch of two processes (torch's
-    or the JAX package's variable) is refused before anything is built or
-    written; sharding the feed over processes comes with slice F."""
+    """A launch of two processes (torch's or the JAX package's variable)
+    splits the global ``--batch`` over them: one that does not divide exits
+    with the JAX CLI's message before anything is built or written, and
+    before any process waits on another (tests/test_torch_parallel.py runs
+    two ranks)."""
     from rgie_tpu_torch.cli.adapt_images import main
 
     monkeypatch.setenv(variable, "2")
-    with pytest.raises(RuntimeError, match="multi-process runs of the diffusion CLI.*slice F"):
+    with pytest.raises(SystemExit, match="--batch 3 must divide over 2 processes"):
         main(["--data-dir", str(tmp_path), "--out-dir", str(tmp_path / "out"),
-              "--device", "cpu", "--batch", "2"])
+              "--device", "cpu", "--batch", "3"])
     assert not os.path.exists(tmp_path / "out")

@@ -423,10 +423,12 @@ def test_bench_gan_profile_runs_the_counted_step(stacks, monkeypatch, capsys):
     monkeypatch.setattr(bench_gan, "build", lambda *a: (models, cfg, images, alphas))
     profiled = []
     monkeypatch.setattr(profile_adapt_images, "profile_phase",
-                        lambda what, step: profiled.append((what, bench_gan.step_flops(step))))
+                        lambda what, step, **kw: profiled.append((what, bench_gan.step_flops(step),
+                                                                  kw)))
     bench_gan.main(["--profile", "--device", "cpu", "--batch", "2"])
     expect = bench_gan.step_flops(bench_gan.objective_step(models, cfg, images, alphas))
-    assert profiled == [("MUNIT objective step (1024 px, batch 2, bfloat16)", expect)]
+    assert profiled == [("MUNIT objective step (1024 px, batch 2, bfloat16)", expect,
+                         {"top": 12, "logdir": None})]
     assert expect > 0 and "{" not in capsys.readouterr().out     # no JSON row
 
 
@@ -489,6 +491,6 @@ def test_cli_refuses_without_cuda_and_several_processes(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(_cli_args(tmp_path))
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="slice F"):
-        main(_cli_args(tmp_path) + ["--device", "cpu"])
+    with pytest.raises(SystemExit, match="--batch 3 must divide over 2 processes"):
+        main(_cli_args(tmp_path) + ["--device", "cpu", "--batch", "3"])
     assert not os.path.exists(tmp_path / "out")

@@ -272,10 +272,12 @@ def test_bench_profile_runs_the_counted_step(models, monkeypatch, capsys):
     monkeypatch.setattr(bench, "build", lambda *a: (edit_models, cfg, images, alphas))
     profiled = []
     monkeypatch.setattr(profile_adapt_images, "profile_phase",
-                        lambda what, step: profiled.append((what, bench.step_flops(step))))
+                        lambda what, step, **kw: profiled.append((what, bench.step_flops(step),
+                                                                  kw)))
     bench.main(["--profile", "--device", "cpu", "--batch", "2"])
     expect = bench.step_flops(bench.objective_step(edit_models, cfg, images, alphas))
-    assert profiled == [("parametric objective step (256 px, batch 2, bfloat16)", expect)]
+    assert profiled == [("parametric objective step (256 px, batch 2, bfloat16)", expect,
+                         {"top": 12, "logdir": None})]
     assert expect > 0 and "{" not in capsys.readouterr().out     # no JSON row
 
 

@@ -30,13 +30,22 @@ def test_every_module_imports_without_jax():
     assert len(names) >= 40 and "rgie_tpu_torch.cli.adapt_images" in names
     assert {"rgie_tpu_torch.analysis.process_results", "rgie_tpu_torch.cli.run_eval_report",
             "rgie_tpu_torch.models.emonet", "rgie_tpu_torch.models.inception"} <= set(names)
+    # slice F and the last modules
+    assert {f"rgie_tpu_torch.{n}" for n in (
+        "parallel.mesh", "parallel.distributed", "data.native_preprocess", "data.augmentor",
+        "data.prefetch", "data.stores", "losses.compound", "models.layers",
+        "utils.bench_history", "utils.logging", "utils.misc", "utils.yaml_config",
+        "cli.bench_preprocess")} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
         "    importlib.import_module(name)\n"
         "from rgie_tpu_torch.cli import adapt_images, optimize_image_param, run_img_trans\n"
+        "from rgie_tpu_torch.cli import bench, bench_preprocess, optimize_image_imaginaire\n"
+        "from rgie_tpu_torch.cli import train_guidance_clf\n"
         "adapt_images.build_parser(); optimize_image_param.build_parser()\n"
-        "run_img_trans.build_parser()\n"
+        "run_img_trans.build_parser(); bench.build_parser(); bench_preprocess.build_parser()\n"
+        "optimize_image_imaginaire.build_parser(); train_guidance_clf.build_parser()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
         "'rgie_tpu', 'triton', 'pandas', 'matplotlib'))\n"
         "assert not bad, bad\n"

@@ -316,9 +316,12 @@ def test_cli_tiny_xl_checkpoint_loads_into_the_sdxl_edit(tmp_path):
 
 
 def test_cli_refuses_a_multi_process_launch(tmp_path, monkeypatch):
-    """Midu training runs on one device until slice F: WORLD_SIZE=2 is
-    refused before any model is built or any checkpoint written."""
+    """Under WORLD_SIZE=2 the global ``--batch-size`` must divide over the
+    processes: 3 exits with the JAX CLI's message before any model is built,
+    any checkpoint written or any process waits on another
+    (tests/test_torch_parallel.py trains on two ranks)."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="multi-process runs of midu training.*slice F"):
-        T.main(["--scale", "tiny", "--device", "cpu", "--out-dir", str(tmp_path / "ckpt")])
+    with pytest.raises(SystemExit, match="--batch-size 3 must divide over 2 processes"):
+        T.main(["--scale", "tiny", "--device", "cpu", "--batch-size", "3",
+                "--out-dir", str(tmp_path / "ckpt")])
     assert not os.path.exists(tmp_path / "ckpt")
