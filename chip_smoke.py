@@ -18,11 +18,15 @@ Phases (every check raises; nothing is caught):
    host work included) at both 1024 px shapes, and on the device alone (the
    call replayed from a CUDA graph). K2 (flash attention forward,
    backward dK/dV, backward dQ): the UNet's (2, 5, 16384, 64), the VAE's
-   (1, 1, 16384, 512), the ragged (1, 5, 9000, 64) and (1, 1, 2100, 512),
-   and widths 32, 128, 36 and 256, in float32 and bfloat16; tolerances in
-   ``K2_TOLERANCE`` below; the route of each of the three kernels
-   (``kernel_route``: tensor, wide, float32 or cuda_cores) is printed per
-   shape. Kernel and plain version are timed with CUDA events in
+   (1, 1, 16384, 512), (1, 2, 16384, 256) (as many operations as the VAE's,
+   at half its width), the ragged (1, 5, 9000, 64) and (1, 1, 2100, 512),
+   and widths 32, 128, 36, 256, 192 and 136 (the last two ragged in N and
+   zero-filled to 256 columns by the wide float32 dK/dV and dQ), in float32
+   and bfloat16; tolerances in ``K2_TOLERANCE`` below; the route of each of
+   the three kernels (``kernel_route``: tensor, wide, float32 or
+   cuda_cores) is printed per shape. The float32 dK/dV and dQ at the VAE's
+   shape are called twice and must give the same bits (fixed summation
+   order, no atomics). Kernel and plain version are timed with CUDA events in
    alternation; one PyTorch call that computes the same function
    (``scaled_dot_product_attention`` and its autograd backward) is timed
    beside them as a yardstick only; float32 dQ is also timed at
@@ -378,8 +382,9 @@ def flash_attention_phase(device, card):
     errors = {dtype: {"fwd": 0.0, "dkv": 0.0, "dq": 0.0} for dtype in K2_TOLERANCE}
     timings = {}
     unet_shape, vae_shape = (2, 5, 16384, 64), (1, 1, 16384, 512)
-    for shape in [unet_shape, vae_shape, (1, 5, 9000, 64), (2, 3, 1000, 32), (1, 2, 2100, 128),
-                  (1, 2, 1000, 36), (1, 1, 2100, 512), (1, 2, 1000, 256)]:
+    for shape in [unet_shape, vae_shape, (1, 2, 16384, 256), (1, 5, 9000, 64), (2, 3, 1000, 32),
+                  (1, 2, 2100, 128), (1, 2, 1000, 36), (1, 1, 2100, 512), (1, 2, 1000, 256),
+                  (1, 2, 700, 192), (1, 1, 130, 136)]:
         for dtype, tol in K2_TOLERANCE.items():
             q, k, v, do = make(shape, dtype, shape[2] + shape[3])
             scale = 1.0 / shape[3] ** 0.5
@@ -435,6 +440,19 @@ def flash_attention_phase(device, card):
                       "dkv": bound(4 * mm, 6 * tensor_bytes + 2 * row_bytes, dtype),
                       "dq": bound(3 * mm, 5 * tensor_bytes + 2 * row_bytes, dtype)}
             timings[(shape, dtype)] = dict(fwd=fwd, dkv=dkv + [dqt[2]], dq=dqt, bounds=bounds)
+            if dtype == torch.float32 and shape == vae_shape:
+                # The wide float32 dK/dV and dQ sum in a fixed order: a second
+                # call gives the same bits.
+                again = (FA._launch_bwd_dkv(qs, ks, vs, dos, lse, di, scale)
+                         + (FA._launch_bwd_dq(qs, ks, vs, dos, lse, di, scale),))
+                first = (FA._launch_bwd_dkv(qs, ks, vs, dos, lse, di, scale)
+                         + (FA._launch_bwd_dq(qs, ks, vs, dos, lse, di, scale),))
+                torch.cuda.synchronize()
+                same = [torch.equal(a, b) for a, b in zip(first, again)]
+                print(f"flash attention {shape} float32: dK, dV, dQ of two calls bit-equal: "
+                      f"{same}")
+                check(all(same), f"flash attention float32 backward differs between two calls "
+                      f"at {shape}")
             print(f"flash attention {shape} {dtype} ms (median of 5, CUDA events) on {card}: "
                   f"fwd kernel {fwd[0]:.3f} plain {fwd[1]:.3f} library sdpa {fwd[2]:.3f} bound "
                   f"{bounds['fwd'][0]:.3f}; dkv kernel {dkv[0]:.3f} plain {dkv[1]:.3f} bound "
@@ -550,6 +568,15 @@ def flash_attention_phase(device, card):
             float32_ms=t32[key][0], float32_plain_ms=t32[key][1],
             float32_bound_ms=t32["bounds"][key][0], float32_bound_by=t32["bounds"][key][1],
             float32_library_ms=t32[key][2], **common))
+    # The float32 wide backward kernels at the VAE's single 512-wide head.
+    for entry, key in ((entries[1], "dkv"), (entries[2], "dq")):
+        entry.update(float32_wide_shape=list(vae_shape),
+                     float32_wide_route=FA.kernel_route("bwd_" + key, torch.float32,
+                                                        vae_shape[3]),
+                     float32_wide_ms=wide32[key][0], float32_wide_plain_ms=wide32[key][1],
+                     float32_wide_bound_ms=wide32["bounds"][key][0],
+                     float32_wide_bound_by=wide32["bounds"][key][1],
+                     float32_wide_library_ms=wide32[key][2], float32_wide_bit_equal=True)
     entries[2].update(float32_batch1_shape=list(nto_shape), float32_batch1_ms=nto_dq[0],
                       float32_batch1_bound_ms=nto_bound[0],
                       float32_batch1_library_ms=nto_dq[1])

@@ -45,6 +45,18 @@ The variants:
   package's result (float32 tolerance), the loop variants,
   ``dkv32_named`` and ``dq32_one_half_ds`` must equal it; the others are
   not compared.
+- ``dkv32w_*``, ``dq32w_*``: the wide float32 dK/dV and dQ (float32 above
+  width 128), timed at the VAE's (1, 1, 16384, 512) and at (1, 2, 16384,
+  256) (as many operations, at 2 groups of 128 columns): ``*_old`` sends float32
+  above 128 back to the first CUDA-core kernels (``RGIE_DKV(float, 8)``,
+  ``RGIE_DQ(float, 8)``; compared with the package's result),
+  ``*_copies_only`` drops both products (the lanes' score products and the
+  sums), ``*_products_only`` drops the copies of the streamed tiles,
+  ``*_without_exp`` replaces the exponential by its argument (not compared);
+  ``dkv32w_float4``, ``*_two_stages``, ``dkv32w_xor1``, ``dq32w_xor0``,
+  ``dkv32w_unrolled``, ``dq32w_rolled`` and
+  ``dkv32w_pointers_in_registers`` turn one knob of the design the other
+  way (must equal the package's result).
 - ``k1_cooperative``: K1's two passes in one cooperative launch, as many
   blocks as fit on the card at once walking the (block, image) items, a
   grid-wide barrier between the passes; ``k1_switch``: the sector's colours
@@ -119,6 +131,23 @@ _DQ_OLD = [("""  if (chunks == 1) {
     return launch_dq_f32<1>(""", """  if (chunks == 1) RGIE_DQ(float, 1);
   if (chunks == -1) {
     return launch_dq_f32<1>(""")]
+
+# The entry points' float32 dispatch above width 128 as it was before the
+# wide float32 kernels: the first CUDA-core kernels at 8 chunks of 64 columns.
+_DKV_WIDE_OLD = [("""  if (wide_groups_for_width(width) == 2) {
+    return launch_dkv_f32_wide<2>(""", """  RGIE_DKV(float, 8);
+  if (wide_groups_for_width(width) == 2) {
+    return launch_dkv_f32_wide<2>(""")]
+_DQ_WIDE_OLD = [("""  if (wide_groups_for_width(width) == 2) {
+    return launch_dq_f32_wide<2>(""", """  RGIE_DQ(float, 8);
+  if (wide_groups_for_width(width) == 2) {
+    return launch_dq_f32_wide<2>(""")]
+# The lanes' score product of the wide kernels left out (the fold, the
+# exponential and the barriers stay, on zeros).
+_NO_LANE_SCORES = """    (void)rows;
+#pragma unroll
+    for (int i = 0; i < 64; ++i) sc[i] = 0.f;
+"""
 
 _K1_BRANCH_FREE = """  const float h6 = delta == 0.f ? 0.f : hue;
   const float s = cmax == 0.f ? 0.f : delta / cmax;
@@ -432,6 +461,65 @@ flash_bwd_dq_tc_kernel(""", _NAMED_BARRIERS),
 """)]),
     "dq32_old_without_exp": (_DQ, _DQ_OLD + [(
         "expf(s[a][bb] * scale - row_lse[a])", "(s[a][bb] * scale - row_lse[a])")]),
+    "dkv32w_old": (_DKV, _DKV_WIDE_OLD),
+    "dkv32w_copies_only": (_DKV, [
+        ("""    lane_scores<NGROUP, kRow, kRow, G::kScoreVec, G::kScoreUnroll>(sc, rows, p_warp ? Qs : dOs,
+                                                                   lane);
+""", _NO_LANE_SCORES),
+        ("    product_nn<8, 4 * NGROUP, kQueries, kQueries, kRow, 32, 1>(acc, T, p_warp ? dOs : Qs,\n"
+         "                                                               lane);\n", "")]),
+    "dkv32w_products_only": (_DKV, [(
+        "    if (qt < n_tiles) {\n      const uint32_t stage",
+        "    if (qt < 0) {\n      const uint32_t stage")]),
+    "dkv32w_without_exp": (_DKV, [
+        ("fast_exp2(fmaf(sc[0], scale2, -l2.x * kLog2e))", "fmaf(sc[0], scale2, -l2.x * kLog2e)"),
+        ("fast_exp2(fmaf(sc[1], scale2, -l2.y * kLog2e))", "fmaf(sc[1], scale2, -l2.y * kLog2e)")]),
+    # The design's knobs turned the other way (each measured; the package
+    # keeps the faster): the score product's float4 reads at width 512 too,
+    # two stages in the ring, the rows of the resident operand in the fold's
+    # order for more or fewer of its rounds (`lane_rows`), and the score
+    # product's loop over the column groups unrolled (dK/dV at width 512) or
+    # rolled up (dQ).
+    "dkv32w_float4": (_DKV, [("  static constexpr int kScoreVec = NGROUP == 4 ? 2 : 4;",
+                              "  static constexpr int kScoreVec = 4;")]),
+    "dkv32w_two_stages": (_DKV, [("  static constexpr int kStages = 3;",
+                                  "  static constexpr int kStages = 2;")]),
+    "dkv32w_xor1": (_DKV, [("  static constexpr int kXorBits = 0;",
+                            "  static constexpr int kXorBits = 1;")]),
+    "dkv32w_unrolled": (_DKV, [(
+        "  static constexpr int kScoreUnroll = NGROUP == 4 ? 1 : NGROUP;",
+        "  static constexpr int kScoreUnroll = NGROUP;")]),
+    # The streamed tensors' addresses held in registers across the loop.
+    "dkv32w_pointers_in_registers": (_DKV, [
+        ("""  __shared__ const float* streamed[4];   // Q, dO, lse, di
+  if (threadIdx.x == 0) {
+    streamed[0] = q + b * sq.b + h * sq.h;
+    streamed[1] = d_o + b * sdo.b + h * sdo.h;
+    streamed[2] = lse + (long long)bh * n;
+    streamed[3] = di + (long long)bh * n;
+  }
+  __syncthreads();""", """  const float* streamed[4] = {q + b * sq.b + h * sq.h, d_o + b * sdo.b + h * sdo.h,
+                              lse + (long long)bh * n, di + (long long)bh * n};"""),
+        ("        const float* src = streamed[2 + threadIdx.x / kQueries];",
+         "        const float* src = threadIdx.x < kQueries ? streamed[2] : streamed[3];")]),
+    "dq32w_old": (_DQ, _DQ_WIDE_OLD),
+    "dq32w_two_stages": (_DQ, [("  static constexpr int kStages = 3;",
+                                "  static constexpr int kStages = 2;")]),
+    "dq32w_xor0": (_DQ, [("  static constexpr int kXorBits = 3;",
+                          "  static constexpr int kXorBits = 0;")]),
+    "dq32w_rolled": (_DQ, [("  static constexpr int kScoreUnroll = NGROUP;",
+                            "  static constexpr int kScoreUnroll = 1;")]),
+    "dq32w_copies_only": (_DQ, [
+        ("""    lane_scores<NGROUP, kRow, kRow, G::kScoreVec, G::kScoreUnroll>(sc, rows, p_warp ? Ks : Vs,
+                                                                   lane);
+""", _NO_LANE_SCORES),
+        ("    product_nn<8, 2 * NGROUP, kKeys, kKeys, kRow, 32, 1>(acc, S, Ks + col0, lane);\n", "")]),
+    "dq32w_products_only": (_DQ, [(
+        "    if (kt < n_tiles) {\n      const int k0 = kt * kKeys;",
+        "    if (kt < 0) {\n      const int k0 = kt * kKeys;")]),
+    "dq32w_without_exp": (_DQ, [
+        ("fast_exp2(fmaf(sc[0], scale2, row_value))", "fmaf(sc[0], scale2, row_value)"),
+        ("fast_exp2(fmaf(sc[1], scale2, row_value))", "fmaf(sc[1], scale2, row_value)")]),
     "k1_cooperative": (_K1, _K1_COOPERATIVE),
     # The prefix's arithmetic left out (each pass only reads and writes).
     "k1_copies_only": (_K1, [
@@ -565,12 +653,15 @@ def make(shape, seed, device, dtype=torch.bfloat16):
 
 def float32_section(fns, device):
     """The float32 forward at the UNet's and the VAE's shapes, dK/dV at the
-    UNet's and dQ at the UNet's at batch 2 and 1 (the null-text step's): the
-    package's kernel, the one it replaced (``*_old``) and each one's
-    variants. The package's result is compared with the old kernel's."""
+    UNet's and dQ at the UNet's at batch 2 and 1 (the null-text step's), the
+    wide dK/dV and dQ at the VAE's: the package's kernel, the one it
+    replaced (``*_old``) and each one's variants. The package's result is
+    compared with the old kernel's."""
     for kernel, shape in [("fwd32", (2, 5, 16384, 64)), ("fwd32", (1, 1, 16384, 512)),
                           ("dkv32", (2, 5, 16384, 64)), ("dq32", (2, 5, 16384, 64)),
-                          ("dq32", (1, 5, 16384, 64))]:
+                          ("dq32", (1, 5, 16384, 64)), ("dkv32w", (1, 1, 16384, 512)),
+                          ("dq32w", (1, 1, 16384, 512)), ("dkv32w", (1, 2, 16384, 256)),
+                          ("dq32w", (1, 2, 16384, 256))]:
         names = [name for name in fns if name.startswith(kernel + "_")]
         if not names:
             continue
@@ -579,7 +670,7 @@ def float32_section(fns, device):
         if kernel == "fwd32":
             package = lambda: FA._launch_fwd(q, k, v, scale)[0]
             variant = lambda name: launch_fwd(fns[name], q, k, v, scale)
-        elif kernel == "dq32":
+        elif kernel.startswith("dq32"):
             o, lse = FA.flash_attention_with_lse(q, k, v, scale)
             di = FA._row_delta(o, do)
             package = lambda: FA._launch_bwd_dq(q, k, v, do, lse, di, scale)
@@ -597,7 +688,7 @@ def float32_section(fns, device):
             print(f"{kernel} {shape} float32: package against the old kernel, {err:.3e} of the "
                   f"largest entry")
         same = [name for name in names
-                if name.endswith(("_outer", "_unroll1", "_unroll4", "_named", "_one_half_ds"))]
+                if not name.endswith(("_old", "_copies_only", "_products_only", "_without_exp"))]
         for name in same:   # the same sums in the same order
             if not torch.equal(variant(name), got):
                 raise AssertionError(f"variant {name} differs from the kernel at {shape}")

@@ -9,13 +9,14 @@
 //
 // Bound on this card: operations (8 N^2 d flops per (batch, head) against
 // 6 N d elements moved): the tensor cores' rate for bfloat16 (1.39 ms at
-// (2, 5, 16384, 64)), the CUDA cores' for float32 (20.5 ms). In both kernels
-// a block owns its key rows and walks the query tiles, so each dK and dV
-// element is summed in a fixed order: no atomics, and the result is the same
-// from run to run. Scores are recomputed from the saved log-sum-exp. P and
-// dS are rounded to the inputs' type before the second products (the TPU
-// kernel's `p.T.astype(do.dtype)`, `ds.T.astype(do.dtype)`). Three kernels,
-// chosen by shape in the C entry point (`kernel_route` names them):
+// (2, 5, 16384, 64)), the CUDA cores' for float32 (20.5 ms; 16.4 ms at the
+// VAE's (1, 1, 16384, 512)). In every kernel a block owns its key rows and
+// walks the query tiles, so each dK and dV element is summed in a fixed
+// order: no atomics, and the result is the same from run to run. Scores are
+// recomputed from the saved log-sum-exp. P and dS are rounded to the inputs'
+// type before the second products (the TPU kernel's `p.T.astype(do.dtype)`,
+// `ds.T.astype(do.dtype)`). Four kernels, chosen by type and width in the C
+// entry point (`kernel_route` names them):
 //
 // 1. `flash_bwd_dkv_tc_kernel`: bfloat16, head widths that are multiples of
 //    8 up to 128 (the note above the kernel has the design: transposed score
@@ -33,17 +34,28 @@
 //    `cp.async` ring, and the four products handed to the block's two warp
 //    halves so that each runs with an 8 x 8 register patch (the note above
 //    the kernel has the design).
-// 3. `flash_bwd_dkv_kernel`: float32 above width 128 and the other bfloat16
-//    widths, on the CUDA cores. Head widths above 64 are walked in 64-column
-//    chunks, the scores summed over the chunks once and one 4x4 patch per
-//    chunk and output kept in registers. Up to width 128 a block holds both
-//    dK and dV (64 registers). At width 512 the two would take 256 registers
-//    a thread, so the work is split over grid.z by output: the blocks of z =
-//    0 sum dV (they need P only, so they skip dO V^T), those of z = 1 sum dK.
-//    The Q K^T products are then done twice (40 tile products per pair of
-//    tiles against the 32 a single block would do), and nothing else is
-//    repeated. The edit never differentiates the VAE, so only width 64 is on
-//    its path.
+// 3. `flash_bwd_dkv_float32_wide_kernel`: float32 above width 128 up to 512
+//    (the VAE's single 512-wide head), on the CUDA cores: whole head rows of
+//    32 keys' K and V resident, Q / dO / lse / di tiles of 8 queries through
+//    a three-stage `cp.async` ring, each score product one warp's 8 x 8
+//    patch split over its lanes by columns and folded by shuffles, the sums
+//    (128 a thread at width 512) with 8 x 16 patches (the note above the
+//    kernel has the design). Compiled for 2 (widths up to 256) and 4 groups
+//    of 128 columns. 255 registers, no spill; 231,616 bytes of dynamic shared
+//    memory at width 512. Its times, its bound and what bounds it are in
+//    PERF.md (`python -m rgie_tpu_torch.cli.kernel_variants dkv32w`).
+// 4. `flash_bwd_dkv_kernel`: the bfloat16 widths the tensor-core kernel does
+//    not take, on the CUDA cores (bfloat16 widened to float32 in shared
+//    memory). Head widths above 64 are walked in 64-column chunks, the scores
+//    summed over the chunks once and one 4x4 patch per chunk and output kept
+//    in registers. Up to width 128 a block holds both dK and dV (64
+//    registers). At width 512 the two would take 256 registers a thread, so
+//    the work is split over grid.z by output: the blocks of z = 0 sum dV
+//    (they need P only, so they skip dO V^T), those of z = 1 sum dK. The Q
+//    K^T products are then done twice (40 tile products per pair of tiles
+//    against the 32 a single block would do), and nothing else is repeated.
+//    It served float32 above width 128 too until kernel 3 replaced it there.
+// The edit never differentiates the VAE, so only width 64 is on its path.
 
 #include "flash_attention_common.cuh"
 
@@ -396,6 +408,208 @@ int launch_dkv_f32(const void* q, const void* k, const void* v, const void* d_o,
 
 
 // ---------------------------------------------------------------------------
+// float32, head widths above 128 up to 512 (the VAE's single 512-wide head):
+// the CUDA cores, whole head rows in shared memory, and each score product
+// split over a warp's lanes (the wide float32 backward set's note in the
+// shared header).
+//
+// A block owns 32 keys; K and V (128 KB at width 512) are copied once and
+// stay. Q, dO, lse and di tiles of 8 queries go through a three-stage
+// `cp.async` ring (32 KB a stage; the copy of tile t + 2 starts at tile t),
+// so each block reads Q and dO once from the L2 cache: (N / 32) N 128 NGROUP
+// 8 bytes, 32.2 GB at (1, 1, 16384, 512).
+// A pair of warps w and w + 4 owns keys 8 w .. 8 w + 7:
+//   warp w:     S^T = K Q^T (its 8 keys x the tile's 8 queries), P^T =
+//               exp(S^T scale - lse) -> shared memory; signals warp w + 4;
+//   warp w + 4: dP^T = V dO^T, waits for warp w, dS^T = P^T (dP^T - di)
+//               scale -> shared memory;
+//   then warp w: dV += P^T dO, warp w + 4: dK += dS^T Q, each for its 8 keys
+//   and every column (lane l: columns 4 l + 128 e), 8 x 4 NGROUP sums a
+//   thread (128 registers at width 512).
+// A pair meets only itself within a tile (named barrier 1 + w, 64 threads);
+// the block meets once a tile, where the next stage's copy starts. Each dK
+// and dV element is summed over the query tiles in order, and each score
+// over the lanes in the fold's fixed order: no atomics. Queries past n have
+// zero Q, dO, lse and di: their P is 1 and meets only zeros. Keys past n
+// reach only rows that are not stored.
+// ---------------------------------------------------------------------------
+
+template <int NGROUP>
+struct Dkv32Wide {
+  static constexpr int kKeys = 32;                           // keys a block
+  static constexpr int kQueries = 8;                         // queries a tile
+  static constexpr int kRow = 128 * NGROUP;                  // floats a row of K, V, Q, dO
+  static constexpr int kStages = 3;                          // of the ring
+  static constexpr int kStageFloats = 2 * kQueries * kRow + 2 * kQueries;   // Q, dO, lse, di
+  static constexpr int kScoreFloats = kKeys * kQueries;      // P^T or dS^T
+  // At width 512, where the 128 sums a thread leave few registers beside the
+  // 64 partial scores, the score product reads float2 pairs and its loop
+  // over the column groups stays rolled up: both measured faster there than
+  // float4 reads and the unrolled loop, which made ptxas move and spill
+  // registers; at width 256 (64 sums) the unrolled loop is the faster
+  // (`kernel_variants dkv32w_float4`, `dkv32w_unrolled`; PERF.md).
+  static constexpr int kScoreVec = NGROUP == 4 ? 2 : 4;
+  static constexpr int kScoreUnroll = NGROUP == 4 ? 1 : NGROUP;
+  static constexpr int kXorBits = 0;                         // `lane_rows`
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (2 * (size_t)kKeys * kRow + 2 * (size_t)kScoreFloats +
+                       kStages * (size_t)kStageFloats);
+};
+
+template <int NGROUP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_float32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const float* __restrict__ d_o,
+                                  const float* __restrict__ lse, const float* __restrict__ di,
+                                  float* __restrict__ dk, float* __restrict__ dv, int heads, int n,
+                                  int width, Strides sq, Strides sk, Strides sv, Strides sdo,
+                                  Strides sdk, Strides sdv, float scale) {
+  using G = Dkv32Wide<NGROUP>;
+  constexpr int kKeys = G::kKeys, kQueries = G::kQueries, kRow = G::kRow;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
+  float* Vs = Ks + kKeys * kRow;
+  float* Pt = Vs + kKeys * kRow;             // P^T: 32 keys x 8 queries
+  float* dSt = Pt + G::kScoreFloats;         // dS^T
+  float* ring = dSt + G::kScoreFloats;       // kStages stages: Q, dO, lse, di
+  const uint32_t ring_addr = smem_addr(ring);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool p_warp = warp < 4;              // P^T and dV; else dS^T and dK
+  const int key0 = 8 * (warp & 3);           // the pair's keys within the block
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.x * kKeys;
+  const int n_tiles = (n + kQueries - 1) / kQueries;
+
+  // The streamed tensors of this (batch, head) are found through shared
+  // memory at each tile, not held in registers across the loop: at width
+  // 512 the 128 sums, the 64 partial scores and their operands leave few to
+  // spare, and holding the four pointers measured slower
+  // (`kernel_variants dkv32w_pointers_in_registers`).
+  __shared__ const float* streamed[4];   // Q, dO, lse, di
+  if (threadIdx.x == 0) {
+    streamed[0] = q + b * sq.b + h * sq.h;
+    streamed[1] = d_o + b * sdo.b + h * sdo.h;
+    streamed[2] = lse + (long long)bh * n;
+    streamed[3] = di + (long long)bh * n;
+  }
+  __syncthreads();
+
+  // Query tile qt into stage qt % kStages: Q's rows, dO's rows, lse and di.
+  auto fetch = [&](int qt) {
+    if (qt < n_tiles) {
+      const uint32_t stage = ring_addr + (uint32_t)((qt % G::kStages) * G::kStageFloats) * 4u;
+      const int q0 = qt * kQueries;
+      copy_tile_f32<kQueries, kRow, kRow>(stage, streamed[0], sq.n, q0, n, 0, width);
+      copy_tile_f32<kQueries, kRow, kRow>(stage + (uint32_t)(kQueries * kRow) * 4u, streamed[1],
+                                          sdo.n, q0, n, 0, width);
+      if (threadIdx.x < 2 * kQueries) {
+        const int r = threadIdx.x % kQueries;
+        const bool valid = q0 + r < n;
+        const float* src = streamed[2 + threadIdx.x / kQueries];
+        cp_async_4(stage + (uint32_t)(2 * kQueries * kRow + threadIdx.x) * 4u,
+                   valid ? src + q0 + r : src, valid);
+      }
+    }
+    cp_async_commit();
+  };
+
+  copy_tile_f32<kKeys, kRow, kRow>(smem_addr(Ks), k + b * sk.b + h * sk.h, sk.n, k0, n, 0, width);
+  copy_tile_f32<kKeys, kRow, kRow>(smem_addr(Vs), v + b * sv.b + h * sv.h, sv.n, k0, n, 0, width);
+#pragma unroll
+  for (int qt = 0; qt + 1 < G::kStages; ++qt) fetch(qt);   // K and V ride with tile 0
+
+  float acc[8][4 * NGROUP];   // dV (warps 0-3) or dK: keys key0 + i, columns 4 lane + 128 e + c
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4 * NGROUP; ++e) acc[i][e] = 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  // The score product's resident rows, in this lane's order.
+  const auto rows = lane_rows<G::kXorBits, kRow>((p_warp ? Ks : Vs) + key0 * kRow, lane);
+  // Its 8 x 8 result, then the left operand of the sums.
+  float* T = (p_warp ? Pt : dSt) + key0 * kQueries;
+  const int at = (lane >> 2) * kQueries + 2 * (lane & 3);   // this lane's two entries of it
+  const int pair = 1 + (warp & 3);
+
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    // Tile qt has arrived, and every thread is done with tile qt - 1: its
+    // stage takes tile qt + kStages - 1, and P^T and dS^T may be written again.
+    cp_async_wait<G::kStages - 2>();
+    __syncthreads();
+    fetch(qt + G::kStages - 1);
+    const float* Qs = ring + (qt % G::kStages) * G::kStageFloats;
+    const float* dOs = Qs + kQueries * kRow;
+    const float* lse_s = dOs + kQueries * kRow;
+    const float* di_s = lse_s + kQueries;
+
+    // S^T (warps 0-3) or dP^T: key key0 + lane / 4, queries 2 (lane % 4) + 0, 1.
+    float sc[64];
+    lane_scores<NGROUP, kRow, kRow, G::kScoreVec, G::kScoreUnroll>(sc, rows, p_warp ? Qs : dOs,
+                                                                   lane);
+    fold_lanes<G::kXorBits>(sc, lane);
+    const int col = 2 * (lane & 3);
+    if (p_warp) {
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + col);
+      *reinterpret_cast<float2*>(T + at) =
+          make_float2(fast_exp2(fmaf(sc[0], scale2, -l2.x * kLog2e)),
+                      fast_exp2(fmaf(sc[1], scale2, -l2.y * kLog2e)));
+      barrier_arrive(pair, 64);
+    } else {
+      barrier_sync(pair, 64);
+      const float2 p = *reinterpret_cast<const float2*>(Pt + key0 * kQueries + at);
+      const float2 d2 = *reinterpret_cast<const float2*>(di_s + col);
+      *reinterpret_cast<float2*>(T + at) =
+          make_float2(p.x * (sc[0] - d2.x) * scale, p.y * (sc[1] - d2.y) * scale);
+    }
+    __syncwarp();
+
+    // dV += P^T dO (warps 0-3), dK += dS^T Q (warps 4-7).
+    product_nn<8, 4 * NGROUP, kQueries, kQueries, kRow, 32, 1>(acc, T, p_warp ? dOs : Qs,
+                                                               lane);
+  }
+  cp_async_wait<0>();
+
+  float* out = p_warp ? dv + b * sdv.b + h * sdv.h : dk + b * sdk.b + h * sdk.h;
+  const long long stride = p_warp ? sdv.n : sdk.n;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = k0 + key0 + i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int e = 0; e < NGROUP; ++e) {
+      const int c = 4 * lane + 128 * e;
+      if (c < width) {
+        store4(out + (long long)r * stride + c,
+               make_float4(acc[i][4 * e], acc[i][4 * e + 1], acc[i][4 * e + 2],
+                           acc[i][4 * e + 3]));
+      }
+    }
+  }
+}
+
+template <int NGROUP>
+int launch_dkv_f32_wide(const void* q, const void* k, const void* v, const void* d_o,
+                        const float* lse, const float* di, void* dk, void* dv, int batch,
+                        int heads, int n, int width, const long long* st, float scale,
+                        cudaStream_t stream) {
+  using G = Dkv32Wide<NGROUP>;
+  auto kernel = flash_bwd_dkv_float32_wide_kernel<NGROUP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + G::kKeys - 1) / G::kKeys, batch * heads);
+  kernel<<<grid, kThreads, G::kSmemBytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)d_o, lse, di, (float*)dk,
+      (float*)dv, heads, n, width, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+      Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]}, scale);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
 // bfloat16, head widths that are multiples of 8 up to 128: the tensor cores.
 //
 // The tiles are computed transposed, keys as the accumulator's rows:
@@ -669,9 +883,9 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* d_o, 
 // ops/kernels/flash_attention.py states the same rule): bfloat16 with a
 // width that is a multiple of 8 up to 128 runs the tensor-core kernel
 // ("tensor"; its tensors 16-byte aligned, strides multiples of 8 elements);
-// float32 up to width 128 the float32 kernel ("float32"; 16-byte aligned,
-// strides multiples of 4); float32 above 128 and every other bfloat16 width
-// the first CUDA-core kernel ("cuda_cores").
+// float32 up to width 128 the float32 kernel and above 128 the wide float32
+// kernel ("float32"; both 16-byte aligned, strides multiples of 4); every
+// other bfloat16 width the first CUDA-core kernel ("cuda_cores").
 extern "C" int rgie_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* d_o, const float* lse, const float* di,
                                             void* dk, void* dv, int batch, int heads, int n,
@@ -706,6 +920,11 @@ extern "C" int rgie_flash_attention_bwd_dkv(const void* q, const void* k, const 
     return launch_dkv_f32<2, 4, 4>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
                                    scale, s);
   }
-  RGIE_DKV(float, 8);
+  if (wide_groups_for_width(width) == 2) {
+    return launch_dkv_f32_wide<2>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
+                                  scale, s);
+  }
+  return launch_dkv_f32_wide<4>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
+                                scale, s);
 #undef RGIE_DKV
 }

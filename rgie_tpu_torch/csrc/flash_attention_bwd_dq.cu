@@ -8,13 +8,14 @@
 //
 // Bound on this card: operations (6 N^2 d flops per (batch, head) against
 // 5 N d elements moved): the tensor cores' rate for bfloat16 (1.04 ms at
-// (2, 5, 16384, 64)), the CUDA cores' for float32 (15.4 ms). In both kernels
-// a block owns its query rows and walks the key tiles, so each dQ element is
-// summed in a fixed order: no atomics, and the result is the same from run to
-// run. Scores are recomputed from the saved log-sum-exp. dS is rounded to the
-// inputs' type before dS K (the TPU kernel's `ds.astype(k.dtype)`; the
-// identity for float32). Three kernels, chosen by shape in the C entry point
-// (`kernel_route` in ops/kernels/flash_attention.py names them):
+// (2, 5, 16384, 64)), the CUDA cores' for float32 (15.4 ms; 12.3 ms at the
+// VAE's (1, 1, 16384, 512)). In every kernel a block owns its query rows and
+// walks the key tiles, so each dQ element is summed in a fixed order: no
+// atomics, and the result is the same from run to run. Scores are recomputed
+// from the saved log-sum-exp. dS is rounded to the inputs' type before dS K
+// (the TPU kernel's `ds.astype(k.dtype)`; the identity for float32). Four
+// kernels, chosen by type and width in the C entry point (`kernel_route` in
+// ops/kernels/flash_attention.py names them):
 //
 // 1. `flash_bwd_dq_tc_kernel`: bfloat16, head widths that are multiples of 8
 //    up to 128 (what the UNet's backward launches 840 times an edit; the note
@@ -47,15 +48,27 @@
 //    copies alone 3.19, the exponential 0.55. What is left is the loops'
 //    rate: both the `FFMA` and the shared-memory reads need 12,288 cycles a
 //    tile, and the loops reach about 62% of that.
-// 3. `flash_bwd_dq_kernel`: float32 above width 128 and the other bfloat16
-//    widths, on the CUDA cores. One block owns 64 query rows; Q and dO stay
-//    resident in shared memory at width 64 and the scores never leave the
-//    chip. A head wider than 64 is walked in 64-column chunks as in the
-//    forward kernel: the scores are summed over the chunks once, and the
-//    block keeps one 4x4 patch of dQ per chunk in registers (128 at width
-//    512), so no product is repeated; the price is that Q, dO, K and V are
-//    reloaded chunk by chunk. The edit never differentiates the VAE, so only
-//    width 64 is on its path, and there the float32 kernel runs.
+// 3. `flash_bwd_dq_float32_wide_kernel`: float32 above width 128 up to 512
+//    (the VAE's single 512-wide head), on the CUDA cores: whole head rows of
+//    32 query rows' Q and dO resident, K and V tiles of 8 keys through a
+//    three-stage `cp.async` ring, each score product one warp's 8 x 8 patch
+//    split over its lanes by columns and folded by shuffles, dQ with 8 x 8
+//    patches, each warp of a pair on half the columns (the note above the
+//    kernel has the design). Compiled for 2 (widths up to 256) and 4 groups
+//    of 128 columns. No spill; 230,400 bytes of dynamic shared memory at
+//    width 512. Its times, its bound and what bounds it are in PERF.md
+//    (`python -m rgie_tpu_torch.cli.kernel_variants dq32w`).
+// 4. `flash_bwd_dq_kernel`: the bfloat16 widths the tensor-core kernel does
+//    not take, on the CUDA cores (bfloat16 widened to float32 in shared
+//    memory). One block owns 64 query rows; Q and dO stay resident in shared
+//    memory at width 64 and the scores never leave the chip. A head wider
+//    than 64 is walked in 64-column chunks as in the forward kernel: the
+//    scores are summed over the chunks once, and the block keeps one 4x4
+//    patch of dQ per chunk in registers (128 at width 512), so no product is
+//    repeated; the price is that Q, dO, K and V are reloaded chunk by chunk.
+//    It served float32 above width 128 too until kernel 3 replaced it there.
+// The edit never differentiates the VAE, so only width 64 is on its path,
+// and there the float32 and tensor-core kernels run.
 
 #include "flash_attention_common.cuh"
 
@@ -417,6 +430,183 @@ int launch_dq_f32(const void* q, const void* k, const void* v, const void* d_o, 
 
 
 // ---------------------------------------------------------------------------
+// float32, head widths above 128 up to 512 (the VAE's single 512-wide head):
+// the CUDA cores, whole head rows in shared memory, and each score product
+// split over a warp's lanes (the wide float32 backward set's note in the
+// shared header).
+//
+// A block owns 32 query rows; Q and dO (128 KB at width 512) are copied once
+// and stay, each thread's row of -lse log2(e) or di in a register. K and V
+// tiles of 8 keys go through a three-stage `cp.async` ring (32 KB a stage;
+// the copy of tile t + 2 starts at tile t), so each block reads K and V once
+// from the L2 cache: (N / 32) N 128 NGROUP 8 bytes, 32.2 GB at
+// (1, 1, 16384, 512). A pair of warps w and w + 4 owns query rows
+// 8 w .. 8 w + 7:
+//   warp w:     S = Q K^T (its 8 rows x the tile's 8 keys), P = exp(S scale -
+//               lse) -> shared memory; signals warp w + 4;
+//   warp w + 4: dP = dO V^T, waits for warp w, dS = P (dP - di) scale over P
+//               in shared memory; signals warp w;
+//   then both: dQ += dS K for the pair's 8 rows, warp w over the first half
+//   of the columns, warp w + 4 over the second (lane l: columns 4 l + 128 e),
+//   8 x 2 NGROUP sums a thread.
+// A pair meets only itself within a tile (named barriers 1 + w and 5 + w, 64
+// threads); the block meets once a tile, where the next stage's copy starts.
+// Each dQ element is summed over the key tiles in order by one thread, and
+// each score over the lanes in the fold's fixed order: no atomics. Keys past
+// n have zero K and V rows but a P that need not be finite: their P is set to
+// 0. Query rows past n have zero Q and dO and lse = di = 0: their dS is 0,
+// and they are not stored.
+// ---------------------------------------------------------------------------
+
+template <int NGROUP>
+struct Dq32Wide {
+  static constexpr int kRows = 32;                           // query rows a block
+  static constexpr int kKeys = 8;                            // keys a tile
+  static constexpr int kRow = 128 * NGROUP;                  // floats a row of Q, dO, K, V
+  static constexpr int kStages = 3;                          // of the ring
+  static constexpr int kStageFloats = 2 * kKeys * kRow;      // K, V
+  static constexpr int kScoreVec = 4;                        // the score product's float4 reads
+  static constexpr int kScoreUnroll = NGROUP;                // and its loop, unrolled
+  static constexpr int kXorBits = 3;                         // `lane_rows`
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (2 * (size_t)kRows * kRow + (size_t)kRows * kKeys +
+                       kStages * (size_t)kStageFloats);
+};
+
+template <int NGROUP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_float32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ d_o,
+                                 const float* __restrict__ lse, const float* __restrict__ di,
+                                 float* __restrict__ dq, int heads, int n, int width, Strides sq,
+                                 Strides sk, Strides sv, Strides sdo, Strides sdq, float scale) {
+  using G = Dq32Wide<NGROUP>;
+  constexpr int kRows = G::kRows, kKeys = G::kKeys, kRow = G::kRow;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* dOs = Qs + kRows * kRow;
+  float* Ss = dOs + kRows * kRow;            // P, then dS over it: 32 rows x 8 keys
+  float* ring = Ss + kRows * kKeys;          // kStages stages: K, V
+  const uint32_t ring_addr = smem_addr(ring);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool p_warp = warp < 4;              // P; else dS
+  const int row0 = 8 * (warp & 3);           // the pair's rows within the block
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.x * kRows;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int n_tiles = (n + kKeys - 1) / kKeys;
+
+  // Key tile kt into stage kt % kStages: K's rows, then V's.
+  auto fetch = [&](int kt) {
+    if (kt < n_tiles) {
+      const int k0 = kt * kKeys;
+      const uint32_t stage = ring_addr + (uint32_t)((kt % G::kStages) * G::kStageFloats) * 4u;
+      copy_tile_f32<kKeys, kRow, kRow>(stage, kb, sk.n, k0, n, 0, width);
+      copy_tile_f32<kKeys, kRow, kRow>(stage + (uint32_t)(kKeys * kRow) * 4u, vb, sv.n, k0, n, 0,
+                                       width);
+    }
+    cp_async_commit();
+  };
+
+  copy_tile_f32<kRows, kRow, kRow>(smem_addr(Qs), q + b * sq.b + h * sq.h, sq.n, q0, n, 0, width);
+  copy_tile_f32<kRows, kRow, kRow>(smem_addr(dOs), d_o + b * sdo.b + h * sdo.h, sdo.n, q0, n, 0,
+                                   width);
+#pragma unroll
+  for (int kt = 0; kt + 1 < G::kStages; ++kt) fetch(kt);   // Q and dO ride with tile 0
+  // This lane's score row: -lse log2(e) for warps 0-3, di for the others.
+  const int row = q0 + row0 + (lane >> 2);
+  const float row_value =
+      row < n ? (p_warp ? -lse[(long long)bh * n + row] * kLog2e : di[(long long)bh * n + row])
+              : 0.f;
+
+  float acc[8][2 * NGROUP];   // dQ: rows row0 + i, columns 4 lane + 128 (e + half NGROUP / 2) + c
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int e = 0; e < 2 * NGROUP; ++e) acc[i][e] = 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  // The score product's resident rows, in this lane's order.
+  const auto rows = lane_rows<G::kXorBits, kRow>((p_warp ? Qs : dOs) + row0 * kRow, lane);
+  float* S = Ss + row0 * kKeys;                         // its 8 x 8 result, then dS
+  const int at = (lane >> 2) * kKeys + 2 * (lane & 3);  // this lane's two entries of it
+  const int pair = 1 + (warp & 3);
+  const int col0 = p_warp ? 0 : 64 * NGROUP;            // this warp's half of dQ's columns
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    // Tile kt has arrived, and every thread is done with tile kt - 1: its
+    // stage takes tile kt + kStages - 1, and P may be written again.
+    cp_async_wait<G::kStages - 2>();
+    __syncthreads();
+    fetch(kt + G::kStages - 1);
+    const float* Ks = ring + (kt % G::kStages) * G::kStageFloats;
+    const float* Vs = Ks + kKeys * kRow;
+
+    // S (warps 0-3) or dP: row row0 + lane / 4, keys kt 8 + 2 (lane % 4) + 0, 1.
+    float sc[64];
+    lane_scores<NGROUP, kRow, kRow, G::kScoreVec, G::kScoreUnroll>(sc, rows, p_warp ? Ks : Vs,
+                                                                   lane);
+    fold_lanes<G::kXorBits>(sc, lane);
+    if (p_warp) {
+      const int key = kt * kKeys + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(S + at) =
+          make_float2(key < n ? fast_exp2(fmaf(sc[0], scale2, row_value)) : 0.f,
+                      key + 1 < n ? fast_exp2(fmaf(sc[1], scale2, row_value)) : 0.f);
+      barrier_arrive(pair, 64);
+      barrier_sync(pair + 4, 64);
+    } else {
+      barrier_sync(pair, 64);
+      const float2 p = *reinterpret_cast<const float2*>(S + at);
+      *reinterpret_cast<float2*>(S + at) =
+          make_float2(p.x * (sc[0] - row_value) * scale, p.y * (sc[1] - row_value) * scale);
+      barrier_arrive(pair + 4, 64);
+      __syncwarp();
+    }
+
+    // dQ += dS K over this warp's half of the columns.
+    product_nn<8, 2 * NGROUP, kKeys, kKeys, kRow, 32, 1>(acc, S, Ks + col0, lane);
+  }
+  cp_async_wait<0>();
+
+  float* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + row0 + i;
+    if (r >= n) continue;
+#pragma unroll
+    for (int e = 0; e < NGROUP / 2; ++e) {
+      const int c = col0 + 4 * lane + 128 * e;
+      if (c < width) {
+        store4(dqb + (long long)r * sdq.n + c,
+               make_float4(acc[i][4 * e], acc[i][4 * e + 1], acc[i][4 * e + 2],
+                           acc[i][4 * e + 3]));
+      }
+    }
+  }
+}
+
+template <int NGROUP>
+int launch_dq_f32_wide(const void* q, const void* k, const void* v, const void* d_o,
+                       const float* lse, const float* di, void* dq, int batch, int heads, int n,
+                       int width, const long long* st, float scale, cudaStream_t stream) {
+  using G = Dq32Wide<NGROUP>;
+  auto kernel = flash_bwd_dq_float32_wide_kernel<NGROUP>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + G::kRows - 1) / G::kRows, batch * heads);
+  kernel<<<grid, kThreads, G::kSmemBytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)d_o, lse, di, (float*)dq,
+      heads, n, width, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+      Strides{st[12], st[13], st[14]}, scale);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
 // bfloat16, head widths that are multiples of 8 up to 128: the tensor cores.
 //
 // One block = 128 query rows of one (batch, head), two warpgroups of 64 rows,
@@ -691,9 +881,9 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* d_o, c
 // ops/kernels/flash_attention.py states the same rule): bfloat16 with a
 // width that is a multiple of 8 up to 128 runs the tensor-core kernel
 // ("tensor"; its tensors 16-byte aligned, strides multiples of 8 elements);
-// float32 up to width 128 the float32 kernel ("float32"; 16-byte aligned,
-// strides multiples of 4); float32 above 128 and every other bfloat16 width
-// the first CUDA-core kernel ("cuda_cores").
+// float32 up to width 128 the float32 kernel and above 128 the wide float32
+// kernel ("float32"; both 16-byte aligned, strides multiples of 4); every
+// other bfloat16 width the first CUDA-core kernel ("cuda_cores").
 extern "C" int rgie_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* d_o, const float* lse, const float* di,
                                            void* dq, int batch, int heads, int n, int width,
@@ -725,6 +915,11 @@ extern "C" int rgie_flash_attention_bwd_dq(const void* q, const void* k, const v
   if (chunks == 2) {
     return launch_dq_f32<2>(q, k, v, d_o, lse, di, dq, batch, heads, n, width, strides, scale, s);
   }
-  RGIE_DQ(float, 8);
+  if (wide_groups_for_width(width) == 2) {
+    return launch_dq_f32_wide<2>(q, k, v, d_o, lse, di, dq, batch, heads, n, width, strides, scale,
+                                 s);
+  }
+  return launch_dq_f32_wide<4>(q, k, v, d_o, lse, di, dq, batch, heads, n, width, strides, scale,
+                               s);
 #undef RGIE_DQ
 }

@@ -1,18 +1,20 @@
 // Shared pieces of the flash-attention kernels (forward, backward dK/dV,
-// backward dQ). Three sets:
+// backward dQ). Four sets:
 //
 // 1. The CUDA-core set (float32 arithmetic): tile geometry, global<->shared
 //    tile copies for float32 and bfloat16, and the three 64x64x64
-//    register-blocked tile products. It serves dQ in float32, dK/dV in
-//    float32 above width 128 and the bfloat16 head widths the tensor-core
-//    kernels do not take.
+//    register-blocked tile products. It serves the bfloat16 head widths the
+//    tensor-core kernels do not take.
 // 2. The tensor-core set (bfloat16): 128-byte swizzled bfloat16 tiles
 //    filled by 16-byte `cp.async` copies, `wgmma` shared-memory descriptors,
 //    the `wgmma` instructions themselves, and the accumulator -> A-fragment
 //    packing with its rounding to bfloat16.
-// 3. The float32 set (at the end of the file): float32 tiles filled by
-//    16-byte `cp.async` copies and the two register-patch products of the
-//    float32 forward and dK/dV, for any split of a block's threads.
+// 3. The float32 set: float32 tiles filled by 16-byte `cp.async` copies
+//    and the two register-patch products of the float32 forward, dK/dV and
+//    dQ, for any split of a block's threads.
+// 4. The wide float32 backward set (at the end of the file): the score
+//    product split over a warp's lanes and the fold of its partial sums, for
+//    dK/dV and dQ in float32 above width 128.
 //
 // Geometry of the CUDA-core set, the same in all three kernels. A block has
 // 256 threads seen as a 16x16 grid (ty = tid / 16, tx = tid % 16). Every tile
@@ -628,6 +630,148 @@ __device__ __forceinline__ void product_nn(float (&acc)[R][W], const float* A, c
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The wide float32 backward: dK/dV and dQ for float32 head widths above 128.
+//
+// Whole head rows sit in shared memory, 128 * NGROUP floats a row (NGROUP =
+// 2 up to width 256, 4 up to 512; columns past the width zero-filled). A
+// score tile there is 32 x 8 (32 resident rows against 8 streamed ones):
+// 256 scores of each of the two score products against a depth of up to
+// 512, too few for an 8 x 8 register patch a thread. So each warp computes
+// one 8 x 8 patch over the whole width, its 32 lanes splitting the depth
+// (lane l takes columns 128 m + 4 l .. + 3), and the lanes' 64 partial sums
+// are then folded: five rounds of `shfl.xor`, each halving the entries a
+// lane holds, leave lane l the sums of entries 2 l and 2 l + 1 (row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1 of the patch). Every read of the
+// product is a whole 512-byte row segment for the warp (no bank conflict),
+// and a 4-deep step reads 16 float4 for 256 multiply-adds (the 0.25 values a
+// multiply-add of an 8 x 8 patch). The fold is 62 shuffles and 62 additions
+// a lane for 1024 multiply-adds at width 512, in a fixed order.
+// ---------------------------------------------------------------------------
+
+// Head widths above 128, multiples of 4, up to 512: 2 (up to 256) or 4
+// groups of 128 columns. Returns 0 for any other width.
+inline int wide_groups_for_width(int width) {
+  if (width <= 128 || width % 4 != 0 || width > 512) return 0;
+  return width <= 256 ? 2 : 4;
+}
+
+// Named barriers 1..15 for a part of the block (`threads` a multiple of 32):
+// `barrier_arrive` signals and goes on, `barrier_sync` waits for the count.
+// What a thread wrote to shared memory before it arrived is visible to the
+// threads that waited.
+__device__ __forceinline__ void barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// VEC consecutive floats (16- or 8-byte aligned) of shared memory into
+// registers. The float2 read is written out as `ld.shared.v2`, so that the
+// compiler keeps the reads as the loop orders them instead of merging
+// neighbouring pairs into float4 reads first (ptxas may still pair them).
+template <int VEC>
+__device__ __forceinline__ void load_vec(float (&r)[VEC], const float* p) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x; r[1] = t.y; r[2] = t.z; r[3] = t.w;
+  } else {
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(r[0]), "=f"(r[1])
+                 : "r"(smem_addr(p))
+                 : "memory");
+  }
+}
+
+// The 8 rows of a warp's resident operand of the score product, as lane
+// `lane` reads them in `lane_scores`: row i of A at base[i >> (3 - XOR_BITS)]
+// + (i % (8 >> XOR_BITS)) AP, each base already at the lane's columns. With
+// XOR_BITS > 0 the lane takes the rows in its own order, i ^ x with x the top
+// XOR_BITS bits of the 3-bit (lane / 4) % 8: then the first XOR_BITS rounds
+// of `fold_lanes<XOR_BITS>` need no select (each lane's entries already sit
+// where it keeps them), for 2^XOR_BITS base addresses held across the loop.
+template <int XOR_BITS>
+struct LaneRows {
+  const float* base[1 << XOR_BITS];
+};
+
+template <int XOR_BITS, int AP>
+__device__ __forceinline__ LaneRows<XOR_BITS> lane_rows(const float* A, int lane) {
+  constexpr int kShift = 3 - XOR_BITS;
+  const int x = ((lane >> 2) & 7) >> kShift;
+  LaneRows<XOR_BITS> rows;
+#pragma unroll
+  for (int g = 0; g < (1 << XOR_BITS); ++g) rows.base[g] = A + 4 * lane + ((g ^ x) << kShift) * AP;
+  return rows;
+}
+
+// This lane's share of the 8 x 8 product A B^T over the head width:
+//   v[8 i + j] = sum over m < NGROUP, c < 4 of
+//                A'[i][128 m + 4 lane + c] B[j][128 m + 4 lane + c],
+// A' the rows of A in the lane's order (`lane_rows`), rows AP and BP floats
+// apart, each sum in the order m, c. The operands are read VEC (4 or 2)
+// floats at a time; the loop over m is unrolled M_UNROLL times.
+template <int NGROUP, int AP, int BP, int VEC, int M_UNROLL, int XOR_BITS>
+__device__ __forceinline__ void lane_scores(float (&v)[64], const LaneRows<XOR_BITS>& rows,
+                                            const float* B, int lane) {
+  static_assert(VEC == 4 || VEC == 2, "float4 or float2 reads");
+  constexpr int kShift = 3 - XOR_BITS;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) v[i] = 0.f;
+  const float* b_col = B + 4 * lane;
+#pragma unroll M_UNROLL
+  for (int m = 0; m < NGROUP; ++m) {
+#pragma unroll
+    for (int c0 = 0; c0 < 4; c0 += VEC) {
+      float a[8][VEC];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        load_vec<VEC>(a[i], rows.base[i >> kShift] + (i & ((1 << kShift) - 1)) * AP + 128 * m + c0);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float b[VEC];
+        load_vec<VEC>(b, b_col + j * BP + 128 * m + c0);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+#pragma unroll
+          for (int c = 0; c < VEC; ++c) v[8 * i + j] = fmaf(a[i][c], b[c], v[8 * i + j]);
+        }
+      }
+    }
+  }
+}
+
+// One round of `fold_lanes`: the lanes whose bit HALF / 2 is clear keep
+// entries [0, HALF), the others [HALF, 2 HALF) (moved down to [0, HALF)),
+// and each adds its partner's copy of the half it keeps. With ORDERED the
+// lane's entries are already in its own order (`lane_rows`): every lane
+// keeps [0, HALF), and no select is needed.
+template <int HALF, bool ORDERED>
+__device__ __forceinline__ void fold_round(float (&v)[64], int lane) {
+  const bool upper = !ORDERED && (lane & (HALF / 2));
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, HALF / 2);
+  }
+}
+
+// Sum v over the warp's 32 lanes, leaving lane l the sums of entries 2 l and
+// 2 l + 1 (row l / 4, columns 2 (l % 4) + 0, 1 of the 8 x 8 patch) in v[0]
+// and v[1]. Each round is its own instantiation, so that every index is a
+// constant and v stays in registers. XOR_BITS as in `lane_rows`.
+template <int XOR_BITS>
+__device__ __forceinline__ void fold_lanes(float (&v)[64], int lane) {
+  fold_round<32, (XOR_BITS > 0)>(v, lane);
+  fold_round<16, (XOR_BITS > 1)>(v, lane);
+  fold_round<8, (XOR_BITS > 2)>(v, lane);
+  fold_round<4, false>(v, lane);
+  fold_round<2, false>(v, lane);
 }
 
 }  // namespace rgie

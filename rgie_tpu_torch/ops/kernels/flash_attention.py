@@ -26,13 +26,16 @@ Inside each C entry point a second dispatch goes by shape, the rule
 - ``"wide"``: the forward in bfloat16 at widths above 128 that are multiples
   of 64, up to 512 (the VAE's single 512-wide head), on the tensor cores, its
   output split by columns over two warpgroups;
-- ``"float32"``: the forward at every float32 width, and dK/dV and dQ at
-  float32 widths up to 128, on the CUDA cores with a ``cp.async`` ring, the
-  query tile (forward, dQ) or the key tile (dK/dV) resident, and 8 x 8 or
-  8 x 16 register patches, a tile's products split over the block's warps;
-- ``"cuda_cores"``: everything else (dK/dV and dQ in float32 above 128, and
-  the bfloat16 widths the tensor-core kernels do not take) on the first
-  CUDA-core kernels, which widen bfloat16 to float32 in shared memory.
+- ``"float32"``: all three at every float32 width, on the CUDA cores with a
+  ``cp.async`` ring, the query tile (forward, dQ) or the key tile (dK/dV)
+  resident, and 8 x 8 or 8 x 16 register patches, a tile's products split
+  over the block's warps; above width 128 dK/dV and dQ run their wide
+  kernels (``flash_bwd_dkv_float32_wide_kernel``,
+  ``flash_bwd_dq_float32_wide_kernel``: whole head rows resident, 32 keys or
+  query rows a block, the score products split over a warp's lanes);
+- ``"cuda_cores"``: the bfloat16 widths the tensor-core kernels do not take,
+  on the first CUDA-core kernels, which widen bfloat16 to float32 in shared
+  memory.
 
 A launch that fails raises.
 
@@ -95,9 +98,10 @@ def kernel_route(kernel: str, dtype: torch.dtype, width: int) -> str:
     ``"cuda_cores"`` (the same rule is written
     out in each source's ``extern "C"`` function): bfloat16 at multiples of 8
     up to 128 on the tensor cores in all three; the forward in bfloat16 also
-    at multiples of 64 above 128 up to 512 (``"wide"``); the forward in
-    float32 at every width and both backward kernels in float32 up to 128 on
-    the float32 kernels; the rest on the first CUDA-core kernels."""
+    at multiples of 64 above 128 up to 512 (``"wide"``); float32 at every
+    width on the float32 kernels in all three (dK/dV and dQ above 128 on
+    their wide float32 kernels); the other bfloat16 widths on the first
+    CUDA-core kernels."""
     if kernel not in KERNELS:
         raise ValueError(f"unknown kernel {kernel!r}: one of {KERNELS}")
     if dtype not in (torch.float32, torch.bfloat16):
@@ -106,9 +110,7 @@ def kernel_route(kernel: str, dtype: torch.dtype, width: int) -> str:
         raise ValueError(f"flash_attention kernels take head widths that are multiples of 4 up "
                          f"to {MAX_HEAD_WIDTH}, got {width}")
     if dtype == torch.float32:
-        if kernel == "fwd" or width <= 128:
-            return "float32"
-        return "cuda_cores"
+        return "float32"
     if width <= 128 and width % 8 == 0:
         return "tensor"
     if kernel == "fwd" and width > 128 and width % 64 == 0:

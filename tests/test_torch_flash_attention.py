@@ -32,7 +32,7 @@ def _rel(got, expect):
     return np.abs(np.asarray(got) - expect).max() / np.abs(expect).max()
 
 
-@pytest.mark.parametrize("d", [8, 64])
+@pytest.mark.parametrize("d", [8, 64, 192, 512])
 @pytest.mark.parametrize("n,block_q,block_k", [(96, 32, 32), (100, 32, 48), (70, 512, 512),
                                                (130, 64, 16)])
 def test_plain_matches_jax_references(d, n, block_q, block_k):
@@ -173,8 +173,7 @@ def test_kernel_route_table_over_widths(dtype):
     written out here as a table of ranges: what each C entry point runs."""
     for width in range(4, 513, 4):
         if dtype == torch.float32:
-            backward = "float32" if width <= 128 else "cuda_cores"
-            expect = {"fwd": "float32", "bwd_dkv": backward, "bwd_dq": backward}
+            expect = dict.fromkeys(FA.KERNELS, "float32")
         elif width <= 128 and width % 8 == 0:
             expect = dict.fromkeys(FA.KERNELS, "tensor")
         else:
@@ -211,6 +210,35 @@ def test_kernel_sources_are_in_the_package():
         assert 'extern "C" int rgie_' + name in text
         assert "cudaGetLastError" in text and "torch/" not in text
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("kernel,launcher", [("bwd_dkv", "launch_dkv_f32_wide"),
+                                             ("bwd_dq", "launch_dq_f32_wide")])
+def test_backward_entry_points_send_wide_float32_to_the_wide_kernels(kernel, launcher):
+    """Past the bfloat16 block and the chunk counts 1 and 2 (widths up to
+    128), the float32 branch of each backward entry point launches its wide
+    float32 kernel at 2 and 4 groups of 128 columns, and nothing else: no
+    first CUDA-core kernel for float32. ``wide_groups_for_width`` gives 2 up
+    to 256 and 4 above, for every multiple of 4 from 132 to 512."""
+    import re
+
+    from rgie_tpu_torch.ops.kernels import build
+
+    text = (build.CSRC_DIR / f"flash_attention_{kernel}.cu").read_text()
+    entry = text[text.index(f'extern "C" int rgie_flash_attention_{kernel}('):]
+    float32_part = entry[entry.index("if (is_bf16) {"):]
+    float32_part = float32_part[float32_part.index("\n  }\n"):]     # past the bfloat16 block
+    wide_part = float32_part[float32_part.index("if (wide_groups_for_width(width) == 2) {"):]
+    assert re.findall(launcher + r"<(\d)>", wide_part) == ["2", "4"]
+    assert "(float, " not in float32_part and "launch_dkv<" not in float32_part
+    assert "launch_dq<" not in float32_part
+    common = (build.CSRC_DIR / "flash_attention_common.cuh").read_text()
+    body = common[common.index("inline int wide_groups_for_width(int width) {"):]
+    body = body[:body.index("\n}\n")]
+    assert "width <= 128 || width % 4 != 0 || width > 512" in body
+    assert "return width <= 256 ? 2 : 4;" in body
+    for width in range(132, 513, 4):
+        assert FA.kernel_route(kernel, torch.float32, width) == "float32", width
 
 
 def test_kernel_variants_still_apply_to_the_sources():
@@ -254,9 +282,12 @@ def test_kernels_match_plain_on_the_card(cuda_device, shape, dtype):
     the tensor cores (zero-filled to 64 or 128 columns), at a ragged N too;
     192, 256 and 512 run the forward's wide tensor-core kernel and the
     backward on the CUDA cores; 36 and 136 run the first CUDA-core kernels
-    throughout. float32 runs the float32 forward at every width, the float32
-    dK/dV and dQ up to 128 (zero-filled to 64 or 128 columns) and the first
-    CUDA-core kernels for the rest (``kernel_route``)."""
+    throughout. float32 runs the float32 kernels at every width
+    (``kernel_route``): the forward, and dK/dV and dQ up to 128 (zero-filled
+    to 64 or 128 columns); above 128 dK/dV and dQ run the wide float32
+    kernels, at 136, 192 and 256 with 2 groups of 128 columns (136 and 192
+    zero-filled to 256) and at 512 with 4, on ragged N (130, 700, 1000,
+    2100) too."""
     b, h, n, d = shape
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(dtype).transpose(1, 2)
                    for a in _qkv(n + d, (b, n, h, d)))
@@ -347,6 +378,30 @@ def test_backward_takes_a_strided_output_gradient(cuda_device, width):
     torch.cuda.synchronize()
     for got, expect in zip(*results):
         assert torch.equal(got, expect)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [192, 512])
+def test_wide_float32_backward_reads_a_strided_output_gradient(cuda_device, width):
+    """A float32 dO whose row stride is the width plus 4 (a multiple of 4:
+    the 16-byte copies take it) is read in place by the wide float32 dK/dV
+    and dQ: the gradients equal those of the same values held contiguously,
+    and two calls give the same bits."""
+    b, h, n = 1, 2, 333
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).transpose(1, 2)
+                   for a in _qkv(7, (b, n, h, width)))
+    padded = torch.zeros(b, h, n, width + 4, device=cuda_device)
+    padded[..., :width] = do
+    view = padded[..., :width]
+    assert FA._strided(view) is view
+    results = []
+    for grad_out in (view, do.contiguous(), view):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = FA.flash_attention(*leaves, sm_scale=width ** -0.5)
+        results.append(torch.autograd.grad(out, leaves, grad_out))
+    torch.cuda.synchronize()
+    for got, contiguous, again in zip(*results):
+        assert torch.equal(got, contiguous) and torch.equal(got, again)
 
 
 @pytest.mark.cuda

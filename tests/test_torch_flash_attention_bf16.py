@@ -124,9 +124,10 @@ def test_plain_float32_is_bit_identical_without_the_rounding_code(monkeypatch, n
     ("bwd_dq", torch.bfloat16, 8, "tensor", 8), ("bwd_dq", torch.bfloat16, 64, "tensor", 8),
     ("bwd_dq", torch.bfloat16, 128, "tensor", 8), ("bwd_dq", torch.bfloat16, 136, "cuda_cores", 4),
     ("bwd_dq", torch.bfloat16, 512, "cuda_cores", 8), ("bwd_dq", torch.float32, 64, "float32", 4),
-    # float32 dQ: the float32 kernel up to 128, as dK/dV.
+    # float32 dQ: the float32 kernels at every width, as dK/dV (the wide one
+    # above 128).
     ("bwd_dq", torch.float32, 36, "float32", 4), ("bwd_dq", torch.float32, 128, "float32", 4),
-    ("bwd_dq", torch.float32, 132, "cuda_cores", 4), ("bwd_dq", torch.float32, 512, "cuda_cores", 4)])
+    ("bwd_dq", torch.float32, 132, "float32", 4), ("bwd_dq", torch.float32, 512, "float32", 4)])
 def test_route_and_load_width_per_type_and_head_width(kernel, dtype, width, expect_route,
                                                       expect_load):
     assert FA.kernel_route(kernel, dtype, width) == expect_route
@@ -186,9 +187,10 @@ def test_strided_rule_follows_the_element_size(dtype):
                                              ("bwd_dq", "launch_dq_f32")])
 def test_float32_dispatch_in_the_source_follows_kernel_route(kernel, launcher):
     """The ``extern "C"`` entry point of a backward kernel sends float32 to
-    its float32 kernel for exactly the widths ``kernel_route`` names
-    ``"float32"``: the chunk counts 1 and 2 of ``chunks_for_width``, whose
-    thresholds are read from the shared header."""
+    its float32 kernel at the chunk counts 1 and 2 of ``chunks_for_width``
+    (thresholds read from the shared header) and to its wide float32 kernel
+    above (chunk count 8): every float32 width is ``"float32"`` in
+    ``kernel_route``."""
     import re
 
     from rgie_tpu_torch.ops.kernels import build
@@ -200,6 +202,7 @@ def test_float32_dispatch_in_the_source_follows_kernel_route(kernel, launcher):
     float32_chunks = {int(c) for c in re.findall(
         r"if \(chunks == (\d)\) \{\s*return " + launcher + r"<\1[,>]", float32_part)}
     assert float32_chunks == {1, 2}
+    assert launcher + "_wide<" in float32_part
     common = (build.CSRC_DIR / "flash_attention_common.cuh").read_text()
     body = common[common.index("inline int chunks_for_width(int width) {"):]
     body = body[:body.index("\n}\n")]
@@ -207,8 +210,8 @@ def test_float32_dispatch_in_the_source_follows_kernel_route(kernel, launcher):
     assert limits == [(64, 1), (128, 2), (512, 8)]
     for width in range(4, 513, 4):
         chunks = next(c for w, c in limits if width <= w)
-        expect = "float32" if chunks in float32_chunks else "cuda_cores"
-        assert FA.kernel_route(kernel, torch.float32, width) == expect, width
+        assert chunks in float32_chunks or chunks == 8
+        assert FA.kernel_route(kernel, torch.float32, width) == "float32", width
 
 
 def test_kernel_sources_name_both_routes():
