@@ -24,12 +24,17 @@ Phases (every check raises; nothing is caught):
    zero-filled to 256 columns by the wide float32 dK/dV and dQ), in float32
    and bfloat16; tolerances in ``K2_TOLERANCE`` below; the route of each of
    the three kernels (``kernel_route``: tensor, wide, float32 or
-   cuda_cores) is printed per shape. The float32 dK/dV and dQ at the VAE's
-   shape are called twice and must give the same bits (fixed summation
-   order, no atomics). Kernel and plain version are timed with CUDA events in
-   alternation; one PyTorch call that computes the same function
-   (``scaled_dot_product_attention`` and its autograd backward) is timed
-   beside them as a yardstick only; float32 dQ is also timed at
+   cuda_cores) is printed per shape. In bfloat16 the widths 192, 256 and 512
+   run all three kernels on the wide tensor-core route. The float32 and the
+   bfloat16 dK/dV and dQ at the VAE's shape are called twice and must give
+   the same bits (fixed summation order, no atomics). Kernel and plain
+   version are timed with CUDA events in alternation; one PyTorch call that
+   computes the same function (``scaled_dot_product_attention`` and its
+   autograd backward) is timed beside them as a yardstick only; the
+   bfloat16 dK/dV and dQ at (1, 1, 16384, 512) and (1, 2, 16384, 256) are
+   printed beside their bound, nominal and with the share of the score
+   products the wide kernels compute twice (``wide_backward_repeat``);
+   float32 dQ is also timed at
    (1, 5, 16384, 64), the null-text step's shape. Kernel and matmul routes
    are also timed at (2, 10, 4096, 64), below the modules' gate, in both
    types. The shapes a batch of 2 adds, (4, 5, 16384, 64) and
@@ -196,8 +201,10 @@ Phases (every check raises; nothing is caught):
 23. Each path is driven with the launch counts set to 0 just before it and
    read just after. One JSON line ``{"kernels": [...]}`` (the K2 entries'
    times are bfloat16's, the type the full-width path runs by default, with
-   float32's beside them under ``float32_*`` and the shapes a batch of 2
-   adds under ``batch_shapes``; the K1 entry has phase 19's shape under
+   float32's beside them under ``float32_*``, the wide kernels at the VAE's
+   shape under ``wide_*`` (forward) and ``wide_bwd_*`` (dK/dV, dQ; with
+   their repeat factor and (1, 2, 16384, 256) under ``wide_bwd_256``) and
+   the shapes a batch of 2 adds under ``batch_shapes``; the K1 entry has phase 19's shape under
    ``run_img_trans_*``; launches are the sum over the paths, by path under
    ``launches_by_path``; the GAN path and the bench launch none), then the
    card, then the last line ``{"ok": true, "device": {...}}``.
@@ -349,6 +356,17 @@ def bound(flops, n_bytes, dtype):
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
+def wide_backward_repeat(kernel, width):
+    """The work of a wide bfloat16 backward kernel over the nominal count of
+    operations (8 N^2 d for dK/dV, 6 N^2 d for dQ): dQ computes each score
+    tile once (1.0); dK/dV computes the two score tiles once per group of
+    output columns, 2 groups above width 256 (1.5) and 1 up to 256 (1.0)."""
+    if kernel == "dq":
+        return 1.0
+    groups = 2 if width > 256 else 1
+    return (2 * groups + 2) / 4
+
+
 def check(cond, what):
     if not cond:
         raise AssertionError(what)
@@ -440,19 +458,29 @@ def flash_attention_phase(device, card):
                       "dkv": bound(4 * mm, 6 * tensor_bytes + 2 * row_bytes, dtype),
                       "dq": bound(3 * mm, 5 * tensor_bytes + 2 * row_bytes, dtype)}
             timings[(shape, dtype)] = dict(fwd=fwd, dkv=dkv + [dqt[2]], dq=dqt, bounds=bounds)
-            if dtype == torch.float32 and shape == vae_shape:
-                # The wide float32 dK/dV and dQ sum in a fixed order: a second
-                # call gives the same bits.
+            if shape == vae_shape:
+                # The wide dK/dV and dQ (float32 and bfloat16) sum in a fixed
+                # order: a second call gives the same bits.
                 again = (FA._launch_bwd_dkv(qs, ks, vs, dos, lse, di, scale)
                          + (FA._launch_bwd_dq(qs, ks, vs, dos, lse, di, scale),))
                 first = (FA._launch_bwd_dkv(qs, ks, vs, dos, lse, di, scale)
                          + (FA._launch_bwd_dq(qs, ks, vs, dos, lse, di, scale),))
                 torch.cuda.synchronize()
                 same = [torch.equal(a, b) for a, b in zip(first, again)]
-                print(f"flash attention {shape} float32: dK, dV, dQ of two calls bit-equal: "
+                print(f"flash attention {shape} {dtype}: dK, dV, dQ of two calls bit-equal: "
                       f"{same}")
-                check(all(same), f"flash attention float32 backward differs between two calls "
+                check(all(same), f"flash attention {dtype} backward differs between two calls "
                       f"at {shape}")
+            if dtype == torch.bfloat16 and FA.kernel_route("bwd_dq", dtype, shape[3]) == "wide":
+                repeat = {key: wide_backward_repeat(key, shape[3]) for key in ("dkv", "dq")}
+                timings[(shape, dtype)]["repeat"] = repeat
+                print(f"flash attention {shape} bfloat16 wide backward ms (median of 5, CUDA "
+                      f"events) on {card}: dkv kernel {dkv[0]:.3f} bound {bounds['dkv'][0]:.3f} "
+                      f"(x{repeat['dkv']:g} with the repeated score products: "
+                      f"{bounds['dkv'][0] * repeat['dkv']:.3f}); dq kernel {dqt[0]:.3f} bound "
+                      f"{bounds['dq'][0]:.3f} (x{repeat['dq']:g}: "
+                      f"{bounds['dq'][0] * repeat['dq']:.3f}); the pair {dkv[0] + dqt[0]:.3f} "
+                      f"against the library's whole backward {dqt[2]:.3f}")
             print(f"flash attention {shape} {dtype} ms (median of 5, CUDA events) on {card}: "
                   f"fwd kernel {fwd[0]:.3f} plain {fwd[1]:.3f} library sdpa {fwd[2]:.3f} bound "
                   f"{bounds['fwd'][0]:.3f}; dkv kernel {dkv[0]:.3f} plain {dkv[1]:.3f} bound "
@@ -577,6 +605,24 @@ def flash_attention_phase(device, card):
                      float32_wide_bound_ms=wide32["bounds"][key][0],
                      float32_wide_bound_by=wide32["bounds"][key][1],
                      float32_wide_library_ms=wide32[key][2], float32_wide_bit_equal=True)
+    # The bfloat16 wide backward kernels at the VAE's single 512-wide head,
+    # and at (1, 2, 16384, 256) (one group of dK/dV's output columns).
+    half_shape = (1, 2, 16384, 256)
+    for entry, key in ((entries[1], "dkv"), (entries[2], "dq")):
+        row = timings[(vae_shape, torch.bfloat16)]
+        half = timings[(half_shape, torch.bfloat16)]
+        entry.update(
+            wide_bwd_shape=list(vae_shape),
+            wide_bwd_route=FA.kernel_route("bwd_" + key, torch.bfloat16, vae_shape[3]),
+            wide_bwd_ms=row[key][0], wide_bwd_plain_ms=row[key][1],
+            wide_bwd_bound_ms=row["bounds"][key][0], wide_bwd_bound_by=row["bounds"][key][1],
+            wide_bwd_repeat=row["repeat"][key],
+            wide_bwd_bound_with_repeat_ms=row["bounds"][key][0] * row["repeat"][key],
+            wide_bwd_library_ms=row[key][2], wide_bwd_bit_equal=True,
+            wide_bwd_256=dict(shape=list(half_shape), ms=half[key][0], plain_ms=half[key][1],
+                              bound_ms=half["bounds"][key][0], repeat=half["repeat"][key],
+                              bound_with_repeat_ms=half["bounds"][key][0] * half["repeat"][key],
+                              library_ms=half[key][2]))
     entries[2].update(float32_batch1_shape=list(nto_shape), float32_batch1_ms=nto_dq[0],
                       float32_batch1_bound_ms=nto_bound[0],
                       float32_batch1_library_ms=nto_dq[1])

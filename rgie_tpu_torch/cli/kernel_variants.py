@@ -57,6 +57,15 @@ The variants:
   ``dkv32w_unrolled``, ``dq32w_rolled`` and
   ``dkv32w_pointers_in_registers`` turn one knob of the design the other
   way (must equal the package's result).
+- ``dkv16w_*``, ``dq16w_*``: the wide bfloat16 dK/dV and dQ (``wgmma``,
+  bfloat16 above width 128), timed at the VAE's (1, 1, 16384, 512) and at
+  (1, 2, 16384, 256): ``*_old`` sends bfloat16 above 128 back to the first
+  CUDA-core kernels (``RGIE_DKV(__nv_bfloat16, 8)``,
+  ``RGIE_DQ(__nv_bfloat16, 8)``; compared with the package's result, within
+  2e-2 of its largest entry: each is within 1e-2 of the plain version),
+  ``*_copies_only`` lets the multiplying warpgroups only meet the barriers
+  (the ring alone), ``*_products_only`` drops the copies of the streamed
+  tiles (neither compared).
 - ``k1_cooperative``: K1's two passes in one cooperative launch, as many
   blocks as fit on the card at once walking the (block, image) items, a
   grid-wide barrier between the passes; ``k1_switch``: the sector's colours
@@ -74,7 +83,7 @@ The variants:
 
 A selection of variants: ``python -m rgie_tpu_torch.cli.kernel_variants
 fwd32 dkv32`` builds and times only the variants whose names start so
-(``k1`` the K1 ones).
+(``k1`` the K1 ones, ``dkv16w dq16w`` the wide bfloat16 backward).
 
 Prints the card's name and power limit first. Needs CUDA and ``nvcc``.
 """
@@ -142,6 +151,19 @@ _DQ_WIDE_OLD = [("""  if (wide_groups_for_width(width) == 2) {
     return launch_dq_f32_wide<2>(""", """  RGIE_DQ(float, 8);
   if (wide_groups_for_width(width) == 2) {
     return launch_dq_f32_wide<2>(""")]
+# The entry points' bfloat16 dispatch above width 128 as it was before the
+# wide tensor-core backward kernels: the first CUDA-core kernels at 8 chunks
+# of 64 columns.
+_WIDE_BF16_OLD = [("    const int wide_atoms = wide_atoms_for_width(width);",
+                   "    const int wide_atoms = 0;   // the first CUDA-core kernels")]
+# The multiplying warpgroups of the wide bfloat16 kernels only meet the
+# copying one's barriers, one a tile.
+_WIDE_BF16_COPIES_ONLY = """  registers_inc<kTcRegisters>();
+  if (n > 0) {
+    for (int tile = 0; tile < n_tiles; ++tile) __syncthreads();
+    return;
+  }
+"""
 # The lanes' score product of the wide kernels left out (the fold, the
 # exponential and the barriers stay, on zeros).
 _NO_LANE_SCORES = """    (void)rows;
@@ -502,6 +524,22 @@ flash_bwd_dq_tc_kernel(""", _NAMED_BARRIERS),
                               lse + (long long)bh * n, di + (long long)bh * n};"""),
         ("        const float* src = streamed[2 + threadIdx.x / kQueries];",
          "        const float* src = threadIdx.x < kQueries ? streamed[2] : streamed[3];")]),
+    "dkv16w_old": (_DKV, _WIDE_BF16_OLD),
+    "dkv16w_copies_only": (_DKV, [(
+        "  registers_inc<kTcRegisters>();\n\n  // This warpgroup's first atom of dK and dV",
+        _WIDE_BF16_COPIES_ONLY + "\n  // This warpgroup's first atom of dK and dV")]),
+    "dkv16w_products_only": (_DKV, [(
+        "      if (qt < n_tiles) {\n        const int slot = qt % kStages;",
+        "      if (qt < 0) {\n        const int slot = qt % kStages;")]),
+    "dq16w_old": (_DQ, _WIDE_BF16_OLD),
+    "dq16w_copies_only": (_DQ, [(
+        "  registers_inc<kTcRegisters>();\n\n"
+        "  // Per thread: rows lane / 4 and lane / 4 + 8 of its warp's 16 of the",
+        _WIDE_BF16_COPIES_ONLY
+        + "\n  // Per thread: rows lane / 4 and lane / 4 + 8 of its warp's 16 of the")]),
+    "dq16w_products_only": (_DQ, [(
+        "      if (kt < n_tiles) {\n        const uint32_t stage = KVs + (kt % kStages)",
+        "      if (kt < 0) {\n        const uint32_t stage = KVs + (kt % kStages)")]),
     "dq32w_old": (_DQ, _DQ_WIDE_OLD),
     "dq32w_two_stages": (_DQ, [("  static constexpr int kStages = 3;",
                                 "  static constexpr int kStages = 2;")]),
@@ -651,26 +689,31 @@ def make(shape, seed, device, dtype=torch.bfloat16):
             .to(device).to(dtype).transpose(1, 2) for _ in range(4)]
 
 
-def float32_section(fns, device):
+def designs_section(fns, device):
     """The float32 forward at the UNet's and the VAE's shapes, dK/dV at the
     UNet's and dQ at the UNet's at batch 2 and 1 (the null-text step's), the
-    wide dK/dV and dQ at the VAE's: the package's kernel, the one it
-    replaced (``*_old``) and each one's variants. The package's result is
-    compared with the old kernel's."""
+    wide float32 and bfloat16 dK/dV and dQ at the VAE's and at
+    (1, 2, 16384, 256): the package's kernel, the one it replaced
+    (``*_old``) and each one's variants. The package's result is compared
+    with the old kernel's."""
     for kernel, shape in [("fwd32", (2, 5, 16384, 64)), ("fwd32", (1, 1, 16384, 512)),
                           ("dkv32", (2, 5, 16384, 64)), ("dq32", (2, 5, 16384, 64)),
                           ("dq32", (1, 5, 16384, 64)), ("dkv32w", (1, 1, 16384, 512)),
                           ("dq32w", (1, 1, 16384, 512)), ("dkv32w", (1, 2, 16384, 256)),
-                          ("dq32w", (1, 2, 16384, 256))]:
+                          ("dq32w", (1, 2, 16384, 256)), ("dkv16w", (1, 1, 16384, 512)),
+                          ("dq16w", (1, 1, 16384, 512)), ("dkv16w", (1, 2, 16384, 256)),
+                          ("dq16w", (1, 2, 16384, 256))]:
         names = [name for name in fns if name.startswith(kernel + "_")]
         if not names:
             continue
-        q, k, v, do = make(shape, 5, device, torch.float32)
+        dtype = torch.bfloat16 if "16" in kernel else torch.float32
+        type_name = str(dtype).removeprefix("torch.")
+        q, k, v, do = make(shape, 5, device, dtype)
         scale = shape[3] ** -0.5
         if kernel == "fwd32":
             package = lambda: FA._launch_fwd(q, k, v, scale)[0]
             variant = lambda name: launch_fwd(fns[name], q, k, v, scale)
-        elif kernel.startswith("dq32"):
+        elif kernel.startswith("dq"):
             o, lse = FA.flash_attention_with_lse(q, k, v, scale)
             di = FA._row_delta(o, do)
             package = lambda: FA._launch_bwd_dq(q, k, v, do, lse, di, scale)
@@ -684,18 +727,20 @@ def float32_section(fns, device):
         if kernel + "_old" in fns:
             old = variant(kernel + "_old")
             torch.cuda.synchronize()
-            err = float((got - old).abs().max() / old.abs().max())
-            print(f"{kernel} {shape} float32: package against the old kernel, {err:.3e} of the "
-                  f"largest entry")
+            err = float((got.float() - old.float()).abs().max() / old.float().abs().max())
+            print(f"{kernel} {shape} {type_name}: package against the old kernel, {err:.3e} of "
+                  f"the largest entry")
+            if dtype == torch.bfloat16 and err > 2e-2:   # each within 1e-2 of the plain version
+                raise AssertionError(f"{kernel} {shape}: the package and the old kernel disagree")
         same = [name for name in names
                 if not name.endswith(("_old", "_copies_only", "_products_only", "_without_exp"))]
         for name in same:   # the same sums in the same order
             if not torch.equal(variant(name), got):
                 raise AssertionError(f"variant {name} differs from the kernel at {shape}")
         if same:
-            print(f"{kernel} {shape} float32: {', '.join(same)} equal the package's result")
+            print(f"{kernel} {shape} {type_name}: {', '.join(same)} equal the package's result")
         ms = time_group([package] + [lambda name=name: variant(name) for name in names])
-        print(f"{kernel} {shape} float32: package {ms[0]:.3f} ms; "
+        print(f"{kernel} {shape} {type_name}: package {ms[0]:.3f} ms; "
               + "; ".join(f"{name} {t:.3f}" for name, t in zip(names, ms[1:])))
         del q, k, v, do
 
@@ -717,7 +762,7 @@ def main(argv=None):
         dq_section(fns, device)
     if "wide_copies_only" in fns:
         wide_section(fns, device)
-    float32_section(fns, device)
+    designs_section(fns, device)
     if not prefixes or any("k1".startswith(p) or p.startswith("k1") for p in prefixes):
         k1_section(fns, device)
 

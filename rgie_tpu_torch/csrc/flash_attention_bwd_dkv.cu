@@ -9,13 +9,13 @@
 //
 // Bound on this card: operations (8 N^2 d flops per (batch, head) against
 // 6 N d elements moved): the tensor cores' rate for bfloat16 (1.39 ms at
-// (2, 5, 16384, 64)), the CUDA cores' for float32 (20.5 ms; 16.4 ms at the
-// VAE's (1, 1, 16384, 512)). In every kernel a block owns its key rows and
+// (2, 5, 16384, 64); 1.11 ms at the VAE's (1, 1, 16384, 512)), the CUDA
+// cores' for float32 (20.5 ms; 16.4 ms at the VAE's shape). In every kernel a block owns its key rows and
 // walks the query tiles, so each dK and dV element is summed in a fixed
 // order: no atomics, and the result is the same from run to run. Scores are
 // recomputed from the saved log-sum-exp. P and dS are rounded to the inputs'
 // type before the second products (the TPU kernel's `p.T.astype(do.dtype)`,
-// `ds.T.astype(do.dtype)`). Four kernels, chosen by type and width in the C
+// `ds.T.astype(do.dtype)`). Five kernels, chosen by type and width in the C
 // entry point (`kernel_route` names them):
 //
 // 1. `flash_bwd_dkv_tc_kernel`: bfloat16, head widths that are multiples of
@@ -44,7 +44,22 @@
 //    of 128 columns. 255 registers, no spill; 231,616 bytes of dynamic shared
 //    memory at width 512. Its times, its bound and what bounds it are in
 //    PERF.md (`python -m rgie_tpu_torch.cli.kernel_variants dkv32w`).
-// 4. `flash_bwd_dkv_kernel`: the bfloat16 widths the tensor-core kernel does
+// 4. `flash_bwd_dkv_wide_kernel`: bfloat16 above width 128 at multiples of
+//    64, up to 512 (the VAE's single 512-wide head), on the tensor cores (the
+//    note above the kernel has the design): a block owns 64 keys with K and
+//    V resident at the full width, Q / dO / lse / di tiles of 16 queries
+//    through a `cp.async` ring fed by a third warpgroup with little work a
+//    copy, the 64 x 16 score tiles (`wgmma` m64n16k16) summed over the width
+//    in two halves, one a warpgroup, added through shared memory, and the
+//    output's columns split over grid.z above width 256 (two groups of four
+//    atoms) and over the two warpgroups: 1.5 x the nominal operations at
+//    width 512, 1.0 x up to 256. 384 threads, 168 registers each at launch
+//    (224 / 56 after `setmaxnreg`, no spill); 214-215 KB of dynamic shared
+//    memory. Measured at (1, 1, 16384, 512) on an NVIDIA H100 80GB HBM3 at
+//    700 W (`python -m rgie_tpu_torch.cli.kernel_variants dkv16w`): 5.18 ms
+//    against 70.5 for kernel 5 in the same call, 3.1 x its bound with the
+//    repeat (1.67 ms); the products alone 4.9, the copies alone 3.0-3.1.
+// 5. `flash_bwd_dkv_kernel`: the bfloat16 widths the tensor-core kernels do
 //    not take, on the CUDA cores (bfloat16 widened to float32 in shared
 //    memory). Head widths above 64 are walked in 64-column chunks, the scores
 //    summed over the chunks once and one 4x4 patch per chunk and output kept
@@ -54,7 +69,10 @@
 //    (they need P only, so they skip dO V^T), those of z = 1 sum dK. The Q
 //    K^T products are then done twice (40 tile products per pair of tiles
 //    against the 32 a single block would do), and nothing else is repeated.
-//    It served float32 above width 128 too until kernel 3 replaced it there.
+//    It served float32 above width 128 too until kernel 3 replaced it there,
+//    and bfloat16 at multiples of 64 above 128 until kernel 4 did; it keeps
+//    the other bfloat16 widths (multiples of 4 that are not of 8 up to 128,
+//    or not of 64 above).
 // The edit never differentiates the VAE, so only width 64 is on its path.
 
 #include "flash_attention_common.cuh"
@@ -667,16 +685,17 @@ __device__ __forceinline__ void start_scores_t(float (&st)[32], float (&dpt)[32]
 }
 
 // In place: st <- P^T = exp(S^T scale - lse), dpt <- dS^T = P^T (dP^T - di)
-// scale. Entry [4 j + i] is key row i / 2 of the thread's pair, query
-// 8 j + 2 (lane % 4) + i % 2 of the tile. Queries past n have zero Q and dO
-// rows and zero lse and di: their P is 1 and meets only zeros. Keys past n
-// only reach rows of dK and dV that are not stored.
-__device__ __forceinline__ void probabilities_t(float (&st)[32], float (&dpt)[32],
-                                                const float* lse_s, const float* di_s,
-                                                float scale, float scale2) {
+// scale, for a tile of QUERIES queries. Entry [4 j + i] is key row i / 2 of
+// the thread's pair, query 8 j + 2 (lane % 4) + i % 2 of the tile. Queries
+// past n have zero Q and dO rows and zero lse and di: their P is 1 and meets
+// only zeros. Keys past n only reach rows of dK and dV that are not stored.
+template <int QUERIES = kDkvQueries>
+__device__ __forceinline__ void probabilities_t(float (&st)[QUERIES / 2],
+                                                float (&dpt)[QUERIES / 2], const float* lse_s,
+                                                const float* di_s, float scale, float scale2) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < QUERIES / 8; ++j) {
     const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * (lane & 3));
     const float2 d2 = *reinterpret_cast<const float2*>(di_s + 8 * j + 2 * (lane & 3));
     const float neg_lse2[2] = {-l2.x * kLog2e, -l2.y * kLog2e};   // base 2, one fma a score
@@ -873,6 +892,246 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* d_o, 
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16, head widths above 128 that are multiples of 64, up to 512 (the
+// VAE's single 512-wide head): the tensor cores, the output split by columns.
+//
+// dK and dV of 64 keys x 512 columns are 256 KB of float32 sums, the whole
+// register file. So the output columns are split into groups over grid.z
+// (one group up to width 256, two above: `kDkvWideGroups`), and each of a
+// block's two multiplying warpgroups sums two 64-column atoms of dK and two
+// of dV (128 registers a thread). A block owns 64 keys. K and V stay
+// resident at the full width (128 KB at 512), since S^T = K Q^T and
+// dP^T = V dO^T sum over all of it. Q, dO, lse and di stream in tiles of 16
+// queries (32 KB of Q and dO at width 512) through a ring of `cp.async`
+// stages fed by the third warpgroup, one barrier per tile.
+//
+// The 64 x 16 score tiles S^T and dP^T (`wgmma` m64n16k16) are summed over
+// the head width in two halves, one a warpgroup, and the halves added
+// through shared memory (`add_partial_scores`, one named barrier a tile):
+// each block computes the scores once, each group's block again, so the
+// work is 1.5 x the nominal 8 N^2 d operations at width 512 (two groups) and
+// 1.0 x up to 256; each warpgroup computing the whole tile instead, as the
+// kernel above does at two atoms (2.5 x and 1.5 x), measured 1.5 x slower
+// at (1, 1, 16384, 512). P^T and dS^T then sit in the
+// accumulator registers of both warpgroups and are, rounded to bfloat16,
+// the A operands of dV += P^T dO and dK += dS^T Q, with dO and Q read
+// MN-major from the stage.
+//
+// The copying warpgroup keeps ahead with little work a copy
+// (`load_rows16_async`): the ring alone takes less time than the products
+// (3.0-3.1 against 4.9 ms at (1, 1, 16384, 512)), so a tile's sums are not
+// overlapped with the next tile's scores (which would hold one more stage),
+// and two stages suffice at width 512 (as fast as three, measured before
+// the exchange took the third's room), eight up to 256.
+// ---------------------------------------------------------------------------
+
+constexpr int kDkvWideKeys = 64;      // keys a block
+constexpr int kDkvWideQueries = 16;   // queries a tile
+constexpr int kDkvWideOwn = 2;        // atoms of dK and of dV a warpgroup sums
+constexpr uint32_t kDkvWideKeyTileBytes = kDkvWideKeys * kRowBytes;        // one atom of K or V
+constexpr uint32_t kDkvWideQueryTileBytes = kDkvWideQueries * kRowBytes;   // one atom of Q or dO
+
+// Groups of output columns over grid.z: 1 at 4 atoms, 2 at 8.
+template <int NATOM>
+constexpr int kDkvWideGroups = NATOM / (2 * kDkvWideOwn);
+// Stages of the ring (beside K and V and the exchange of partial scores).
+template <int NATOM>
+constexpr int kDkvWideStages = NATOM == 8 ? 2 : 8;
+// Floats of the exchange of partial score tiles: 2 warpgroups x 2 tiles x
+// 8 values x 128 threads.
+constexpr int kDkvWideExchange = 2 * 2 * (kDkvWideQueries / 2) * 128;
+
+template <int NATOM>
+__global__ void __launch_bounds__(kTcThreads + kCopyThreads, 1)
+flash_bwd_dkv_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                          const float* __restrict__ lse, const float* __restrict__ di,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int heads, int n,
+                          int width, Strides sq, Strides sk, Strides sv, Strides sdo,
+                          Strides sdk, Strides sdv, float scale) {
+  constexpr int kQueries = kDkvWideQueries;
+  constexpr int kStages = kDkvWideStages<NATOM>;
+  constexpr uint32_t kStageBytes = 2 * NATOM * kDkvWideQueryTileBytes;   // Q's atoms, dO's
+  extern __shared__ char smem_raw[];
+  const uint32_t smem0 = smem_addr(smem_raw);
+  const uint32_t Ks = (smem0 + 1023u) & ~1023u;                 // NATOM tiles
+  const uint32_t Vs = Ks + NATOM * kDkvWideKeyTileBytes;        // NATOM tiles
+  const uint32_t ring = Vs + NATOM * kDkvWideKeyTileBytes;      // kStages stages
+  const uint32_t row_values = ring + kStages * kStageBytes;     // a stage's lse, then di
+  const float* row_values_ptr = reinterpret_cast<const float*>(smem_raw + (row_values - smem0));
+  float* exchange = reinterpret_cast<float*>(smem_raw + (row_values - smem0)) +
+                    kStages * 2 * kQueries;                      // kDkvWideExchange floats
+
+  const int wg = threadIdx.x >> 7;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int k0 = blockIdx.x * kDkvWideKeys;
+  const int n_tiles = (n + kQueries - 1) / kQueries;
+
+  if (threadIdx.x >= kTcThreads) {
+    registers_dec<kCopyRegisters>();
+    // The copying warpgroup. At the barrier of tile t, tile t has arrived
+    // and tile t - 1 is no longer read: the copy of tile t + kStages - 1
+    // takes its stage.
+    const int loader = threadIdx.x - kTcThreads;
+    const bf16* qb = q + b * sq.b + h * sq.h;
+    const bf16* dob = d_o + b * sdo.b + h * sdo.h;
+    auto load_query_tile = [&](int qt) {
+      if (qt < n_tiles) {
+        const int slot = qt % kStages;
+        const uint32_t stage = ring + slot * kStageBytes;
+        const int q0 = qt * kQueries;
+        load_rows16_async<NATOM>(stage, kDkvWideQueryTileBytes, qb, sq.n, q0, n, width, loader);
+        load_rows16_async<NATOM>(stage + NATOM * kDkvWideQueryTileBytes, kDkvWideQueryTileBytes,
+                                 dob, sdo.n, q0, n, width, loader);
+        if (loader < 2 * kQueries) {   // lse by loaders 0-15, di by 16-31
+          const int r = loader % kQueries;
+          const float* src = (loader < kQueries ? lse : di) + (long long)bh * n;
+          const bool valid = q0 + r < n;
+          cp_async_4(row_values + (slot * 2 * kQueries + loader) * sizeof(float),
+                     valid ? src + q0 + r : src, valid);
+        }
+      }
+      cp_async_commit();   // an empty group past the last tile keeps the count of groups
+    };
+    const bf16* kb = k + b * sk.b + h * sk.h;
+    const bf16* vb = v + b * sv.b + h * sv.h;
+#pragma unroll 1
+    for (int a = 0; a < NATOM; ++a) {
+      load_tile_async(Ks + a * kDkvWideKeyTileBytes, kb, sk.n, k0, n, kDkvWideKeys, a * kAtom,
+                      width, loader, kCopyThreads);
+      load_tile_async(Vs + a * kDkvWideKeyTileBytes, vb, sv.n, k0, n, kDkvWideKeys, a * kAtom,
+                      width, loader, kCopyThreads);
+    }
+#pragma unroll 1
+    for (int qt = 0; qt < kStages - 1; ++qt) load_query_tile(qt);   // K and V go with tile 0
+#pragma unroll 1
+    for (int qt = 0; qt < n_tiles; ++qt) {
+      cp_async_wait_and_publish<kStages - 2>();   // tile qt (the ones after it may not be)
+      __syncthreads();
+      load_query_tile(qt + kStages - 1);
+    }
+    return;
+  }
+  registers_inc<kTcRegisters>();
+
+  // This warpgroup's first atom of dK and dV: group blockIdx.z owns atoms
+  // [4 z, 4 z + 4), its warpgroup wg the two from 4 z + 2 wg. Its scores sum
+  // over atoms [wg NATOM / 2, (wg + 1) NATOM / 2) of the head width.
+  const int out_atom = (blockIdx.z * 2 + wg) * kDkvWideOwn;
+  const uint32_t score_atom = wg * (NATOM / 2);
+  float acc_dv[kDkvWideOwn][32], acc_dk[kDkvWideOwn][32];
+#pragma unroll
+  for (int a = 0; a < kDkvWideOwn; ++a) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_dv[a][i] = acc_dk[a][i] = 0.f;
+  }
+  const float scale2 = scale * kLog2e;
+  float st[kQueries / 2], dpt[kQueries / 2];
+  uint32_t pa[1][4], dsa[1][4];
+
+  // Every register a product of the coming stage reads or writes is fenced
+  // before its first `wgmma` (see `open_stage`).
+  auto open_wide_stage = [&]() {
+    fence_registers(st);
+    fence_registers(dpt);
+#pragma unroll
+    for (int a = 0; a < kDkvWideOwn; ++a) {
+      fence_registers(acc_dv[a]);
+      fence_registers(acc_dk[a]);
+    }
+    wgmma_fence();
+  };
+  auto close_wide_sums = [&]() {
+    fence_fragments(pa);
+    fence_fragments(dsa);
+#pragma unroll
+    for (int a = 0; a < kDkvWideOwn; ++a) {
+      fence_registers(acc_dv[a]);
+      fence_registers(acc_dk[a]);
+    }
+  };
+
+  // No `wgmma` sits under a condition (see the kernel above).
+  for (int qt = 0; qt < n_tiles; ++qt) {
+    const int slot = qt % kStages;
+    const uint32_t q_tiles = ring + slot * kStageBytes;
+    const uint32_t do_tiles = q_tiles + NATOM * kDkvWideQueryTileBytes;
+    __syncthreads();   // tile qt has arrived; both warpgroups are done with tile qt - 1
+
+    // S^T = K Q^T and dP^T = V dO^T for the block's 64 keys and the tile's
+    // 16 queries, over this warpgroup's half of the head width.
+    const uint64_t k_desc = opaque(tile_descriptor(Ks + score_atom * kDkvWideKeyTileBytes));
+    const uint64_t v_desc = opaque(tile_descriptor(Vs + score_atom * kDkvWideKeyTileBytes));
+    const uint64_t q_desc = tile_descriptor(q_tiles + score_atom * kDkvWideQueryTileBytes);
+    const uint64_t do_desc = tile_descriptor(do_tiles + score_atom * kDkvWideQueryTileBytes);
+    open_wide_stage();
+#pragma unroll
+    for (int ks = 0; ks < NATOM * 2; ++ks) {
+      const uint32_t key_atom = (ks >> 2) * kDkvWideKeyTileBytes;
+      const uint32_t query_atom = (ks >> 2) * kDkvWideQueryTileBytes;
+      const uint64_t step = (ks & 3) * kDescNextColumns16;
+      wgmma_m64n16k16_ss(st, descriptor_plus(k_desc, key_atom) + step,
+                         descriptor_plus(q_desc, query_atom) + step, ks > 0);
+      wgmma_m64n16k16_ss(dpt, descriptor_plus(v_desc, key_atom) + step,
+                         descriptor_plus(do_desc, query_atom) + step, ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(st);
+    fence_registers(dpt);
+    add_partial_scores(st, dpt, exchange);
+    const float* lse_s = row_values_ptr + slot * 2 * kQueries;
+    probabilities_t<kQueries>(st, dpt, lse_s, lse_s + kQueries, scale, scale2);
+    pack_fragment(pa[0], st, 0);
+    pack_fragment(dsa[0], dpt, 0);
+
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's atoms.
+    open_wide_stage();
+#pragma unroll
+    for (int a = 0; a < kDkvWideOwn; ++a) {
+      const uint32_t atom = (out_atom + a) * kDkvWideQueryTileBytes;
+      wgmma_m64n64k16_rs_tb(acc_dv[a], pa[0], tile_descriptor(do_tiles + atom));
+      wgmma_m64n64k16_rs_tb(acc_dk[a], dsa[0], tile_descriptor(q_tiles + atom));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    close_wide_sums();
+  }
+
+#pragma unroll
+  for (int a = 0; a < kDkvWideOwn; ++a) {
+    store_accumulator(dv + b * sdv.b + h * sdv.h, sdv.n, k0, n, (out_atom + a) * kAtom, width,
+                      acc_dv[a], 1.f, 1.f);
+    store_accumulator(dk + b * sdk.b + h * sdk.h, sdk.n, k0, n, (out_atom + a) * kAtom, width,
+                      acc_dk[a], 1.f, 1.f);
+  }
+}
+
+template <int NATOM>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* d_o,
+                    const float* lse, const float* di, void* dk, void* dv, int batch, int heads,
+                    int n, int width, const long long* st, float scale, cudaStream_t stream) {
+  // The slack to align the first tile, K and V resident, the stages of Q
+  // and dO with their lse and di, and the exchange of partial scores.
+  const size_t smem = 1024 + (size_t)2 * NATOM * kDkvWideKeyTileBytes +
+                      kDkvWideStages<NATOM> * ((size_t)2 * NATOM * kDkvWideQueryTileBytes +
+                                               2 * kDkvWideQueries * sizeof(float)) +
+                      kDkvWideExchange * sizeof(float);
+  auto kernel = flash_bwd_dkv_wide_kernel<NATOM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kDkvWideKeys - 1) / kDkvWideKeys, batch * heads, kDkvWideGroups<NATOM>);
+  kernel<<<grid, kTcThreads + kCopyThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_o, lse, di, (bf16*)dk,
+      (bf16*)dv, heads, n, width, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+      Strides{st[12], st[13], st[14]}, Strides{st[15], st[16], st[17]}, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace rgie
 
 // q, k, v, d_o, dk, dv: (batch, heads, n, width) with the width axis
@@ -882,10 +1141,12 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* d_o, 
 // or a grid the kernel does not take. Dispatch by shape (``kernel_route`` in
 // ops/kernels/flash_attention.py states the same rule): bfloat16 with a
 // width that is a multiple of 8 up to 128 runs the tensor-core kernel
-// ("tensor"; its tensors 16-byte aligned, strides multiples of 8 elements);
-// float32 up to width 128 the float32 kernel and above 128 the wide float32
-// kernel ("float32"; both 16-byte aligned, strides multiples of 4); every
-// other bfloat16 width the first CUDA-core kernel ("cuda_cores").
+// ("tensor"), bfloat16 with a width that is a multiple of 64 above 128 up to
+// 512 the wide tensor-core kernel ("wide"; both take tensors 16-byte
+// aligned, strides multiples of 8 elements); float32 up to width 128 the
+// float32 kernel and above 128 the wide float32 kernel ("float32"; both
+// 16-byte aligned, strides multiples of 4); every other bfloat16 width the
+// first CUDA-core kernel ("cuda_cores").
 extern "C" int rgie_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                             const void* d_o, const float* lse, const float* di,
                                             void* dk, void* dv, int batch, int heads, int n,
@@ -907,6 +1168,15 @@ extern "C" int rgie_flash_attention_bwd_dkv(const void* q, const void* k, const 
     if (atoms == 2) {
       return launch_dkv_tc<2>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
                               scale, s);
+    }
+    const int wide_atoms = wide_atoms_for_width(width);
+    if (wide_atoms == 4) {
+      return launch_dkv_wide<4>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
+                                scale, s);
+    }
+    if (wide_atoms == 8) {
+      return launch_dkv_wide<8>(q, k, v, d_o, lse, di, dk, dv, batch, heads, n, width, strides,
+                                scale, s);
     }
     if (chunks == 1) RGIE_DKV(__nv_bfloat16, 1);
     if (chunks == 2) RGIE_DKV(__nv_bfloat16, 2);

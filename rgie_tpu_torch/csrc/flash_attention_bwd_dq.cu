@@ -8,12 +8,12 @@
 //
 // Bound on this card: operations (6 N^2 d flops per (batch, head) against
 // 5 N d elements moved): the tensor cores' rate for bfloat16 (1.04 ms at
-// (2, 5, 16384, 64)), the CUDA cores' for float32 (15.4 ms; 12.3 ms at the
-// VAE's (1, 1, 16384, 512)). In every kernel a block owns its query rows and
+// (2, 5, 16384, 64); 0.83 ms at the VAE's (1, 1, 16384, 512)), the CUDA
+// cores' for float32 (15.4 ms; 12.3 ms at the VAE's shape). In every kernel a block owns its query rows and
 // walks the key tiles, so each dQ element is summed in a fixed order: no
 // atomics, and the result is the same from run to run. Scores are recomputed
 // from the saved log-sum-exp. dS is rounded to the inputs' type before dS K
-// (the TPU kernel's `ds.astype(k.dtype)`; the identity for float32). Four
+// (the TPU kernel's `ds.astype(k.dtype)`; the identity for float32). Five
 // kernels, chosen by type and width in the C entry point (`kernel_route` in
 // ops/kernels/flash_attention.py names them):
 //
@@ -58,7 +58,21 @@
 //    of 128 columns. No spill; 230,400 bytes of dynamic shared memory at
 //    width 512. Its times, its bound and what bounds it are in PERF.md
 //    (`python -m rgie_tpu_torch.cli.kernel_variants dq32w`).
-// 4. `flash_bwd_dq_kernel`: the bfloat16 widths the tensor-core kernel does
+// 4. `flash_bwd_dq_wide_kernel`: bfloat16 above width 128 at multiples of
+//    64, up to 512 (the VAE's single 512-wide head), on the tensor cores (the
+//    note above the kernel has the design): the forward's wide kernel's
+//    shape, a block of 64 query rows whose two warpgroups each own half of
+//    dQ's columns, Q and dO resident, K and V tiles of 16 keys through a
+//    `cp.async` ring fed by a third warpgroup with little work a copy, and
+//    S and dP (`wgmma` m64n16k16) summed over the width in two halves, one a
+//    warpgroup, added through shared memory: the nominal operations, none
+//    repeated. 384 threads, 168 registers each at launch (224 / 56 after
+//    `setmaxnreg`, no spill); 214 KB of dynamic shared memory. Measured at
+//    (1, 1, 16384, 512) on an NVIDIA H100 80GB HBM3 at 700 W (`python -m
+//    rgie_tpu_torch.cli.kernel_variants dq16w`): 2.56-2.60 ms against 40.8
+//    for kernel 5 in the same call, 3.1 x its bound (0.83 ms); the products
+//    alone 2.4-2.5, the copies alone 1.7.
+// 5. `flash_bwd_dq_kernel`: the bfloat16 widths the tensor-core kernels do
 //    not take, on the CUDA cores (bfloat16 widened to float32 in shared
 //    memory). One block owns 64 query rows; Q and dO stay resident in shared
 //    memory at width 64 and the scores never leave the chip. A head wider
@@ -66,7 +80,8 @@
 //    scores are summed over the chunks once, and the block keeps one 4x4
 //    patch of dQ per chunk in registers (128 at width 512), so no product is
 //    repeated; the price is that Q, dO, K and V are reloaded chunk by chunk.
-//    It served float32 above width 128 too until kernel 3 replaced it there.
+//    It served float32 above width 128 too until kernel 3 replaced it there,
+//    and bfloat16 at multiples of 64 above 128 until kernel 4 did.
 // The edit never differentiates the VAE, so only width 64 is on its path,
 // and there the float32 and tensor-core kernels run.
 
@@ -643,8 +658,11 @@ __device__ __forceinline__ void wgmma_scores(float (&d)[KEYS / 2], uint64_t a, u
                                              int accumulate) {
   if constexpr (KEYS == 128) {
     wgmma_m64n128k16_ss(d, a, b, accumulate);
-  } else {
+  } else if constexpr (KEYS == 64) {
     wgmma_m64n64k16_ss(d, a, b, accumulate);
+  } else {
+    static_assert(KEYS == 16, "score tiles of 128, 64 or 16 keys");
+    wgmma_m64n16k16_ss(d, a, b, accumulate);
   }
 }
 
@@ -871,6 +889,196 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* d_o, c
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// bfloat16, head widths above 128 that are multiples of 64, up to 512 (the
+// VAE's single 512-wide head): the tensor cores, dQ split by columns.
+//
+// The shape of the forward's wide kernel. A warpgroup that owned 64 rows of a
+// 512-wide dQ would need 256 registers a thread for its sums alone, so a
+// block owns 64 query rows and each of its two multiplying warpgroups owns
+// half of dQ's columns (NATOM / 2 atoms, at most four 64 x 64 accumulators:
+// 128 registers). Both need all of dS: S = Q K^T and dP = dO V^T (`wgmma`
+// m64n16k16) are summed over the head width in two halves, one a
+// warpgroup, and the halves added through shared memory
+// (`add_partial_scores`), so the scores are computed once: 1.0 x the
+// nominal 6 N^2 d operations; each warpgroup computing them whole instead,
+// as the forward's wide kernel does (1.67 x), measured 1.4 x slower at
+// (1, 1, 16384, 512). Q and dO stay resident (128 KB at
+// width 512). K and V tiles of 16 keys (32 KB together at width 512) go
+// through a ring of `cp.async` stages fed by the third warpgroup
+// (`load_rows16_async`), one barrier per tile: two stages at width 512,
+// eight up to 256. As in the wide dK/dV kernel the ring alone takes less
+// time than the products (1.7 against 2.4-2.5 ms at (1, 1, 16384, 512)), and
+// a tile's dQ += dS K is not overlapped with the next tile's scores.
+// ---------------------------------------------------------------------------
+
+constexpr int kDqWideRows = 64;    // queries a block
+constexpr int kDqWideKeys = 16;    // keys a tile
+constexpr uint32_t kDqWideQueryTileBytes = kDqWideRows * kRowBytes;   // one atom of Q or dO
+constexpr uint32_t kDqWideKeyTileBytes = kDqWideKeys * kRowBytes;     // one atom of K or V
+
+// Stages of the ring (beside Q and dO and the exchange of partial scores).
+template <int NATOM>
+constexpr int kDqWideStages = NATOM == 8 ? 2 : 8;
+// Floats of the exchange of partial score tiles: 2 warpgroups x 2 tiles x
+// 8 values x 128 threads.
+constexpr int kDqWideExchange = 2 * 2 * (kDqWideKeys / 2) * 128;
+
+template <int NATOM>
+__global__ void __launch_bounds__(kTcThreads + kCopyThreads, 1)
+flash_bwd_dq_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const bf16* __restrict__ d_o,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         bf16* __restrict__ dq, int heads, int n, int width, Strides sq,
+                         Strides sk, Strides sv, Strides sdo, Strides sdq, float scale) {
+  constexpr int kOwn = NATOM / 2;                                  // dQ atoms a warpgroup
+  constexpr int KEYS = kDqWideKeys;
+  constexpr int kStages = kDqWideStages<NATOM>;
+  constexpr uint32_t kStageBytes = 2 * NATOM * kDqWideKeyTileBytes;   // K's atoms, then V's
+  extern __shared__ char smem_raw[];
+  const uint32_t Qs = (smem_addr(smem_raw) + 1023u) & ~1023u;   // NATOM tiles
+  const uint32_t dOs = Qs + NATOM * kDqWideQueryTileBytes;      // NATOM tiles
+  const uint32_t KVs = dOs + NATOM * kDqWideQueryTileBytes;     // kStages stages
+  float* exchange = reinterpret_cast<float*>(smem_raw + (KVs + kStages * kStageBytes -
+                                                         smem_addr(smem_raw)));
+
+  const int lane = threadIdx.x & 31, wg = threadIdx.x >> 7;
+  const int bh = blockIdx.y, b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.x * kDqWideRows;
+  const int n_tiles = (n + KEYS - 1) / KEYS;
+
+  if (threadIdx.x >= kTcThreads) {
+    registers_dec<kCopyRegisters>();
+    // The copying warpgroup. At the barrier of tile t, tile t has arrived
+    // and tile t - 1 is no longer read: the copy of tile t + kStages - 1
+    // takes its stage.
+    const int loader = threadIdx.x - kTcThreads;
+    const bf16* kb = k + b * sk.b + h * sk.h;
+    const bf16* vb = v + b * sv.b + h * sv.h;
+    auto load_key_tile = [&](int kt) {
+      if (kt < n_tiles) {
+        const uint32_t stage = KVs + (kt % kStages) * kStageBytes;
+        load_rows16_async<NATOM>(stage, kDqWideKeyTileBytes, kb, sk.n, kt * KEYS, n, width,
+                                 loader);
+        load_rows16_async<NATOM>(stage + NATOM * kDqWideKeyTileBytes, kDqWideKeyTileBytes, vb,
+                                 sv.n, kt * KEYS, n, width, loader);
+      }
+      cp_async_commit();   // an empty group past the last tile keeps the count of groups
+    };
+    const bf16* qb = q + b * sq.b + h * sq.h;
+    const bf16* dob = d_o + b * sdo.b + h * sdo.h;
+#pragma unroll 1
+    for (int a = 0; a < NATOM; ++a) {
+      load_tile_async(Qs + a * kDqWideQueryTileBytes, qb, sq.n, q0, n, kDqWideRows, a * kAtom,
+                      width, loader, kCopyThreads);
+      load_tile_async(dOs + a * kDqWideQueryTileBytes, dob, sdo.n, q0, n, kDqWideRows,
+                      a * kAtom, width, loader, kCopyThreads);
+    }
+#pragma unroll 1
+    for (int kt = 0; kt < kStages - 1; ++kt) load_key_tile(kt);   // Q and dO go with tile 0
+#pragma unroll 1
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      cp_async_wait_and_publish<kStages - 2>();   // key tile kt (the ones after it may not be)
+      __syncthreads();
+      load_key_tile(kt + kStages - 1);
+    }
+    return;
+  }
+  registers_inc<kTcRegisters>();
+
+  // Per thread: rows lane / 4 and lane / 4 + 8 of its warp's 16 of the
+  // block's 64 rows (the same rows in both warpgroups).
+  const float scale2 = scale * kLog2e;
+  float neg_lse2[2], neg_di_scaled[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2) + 8 * r;
+    neg_lse2[r] = row < n ? -lse[(long long)bh * n + row] * kLog2e : 0.f;
+    neg_di_scaled[r] = row < n ? -di[(long long)bh * n + row] * scale : 0.f;
+  }
+  float acc[kOwn][32];
+#pragma unroll
+  for (int a = 0; a < kOwn; ++a) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[a][i] = 0.f;
+  }
+  // This warpgroup's atoms: of K and dQ for the sums, and of the head
+  // width for its half of the scores (kOwn atoms from wg kOwn in both).
+  const uint32_t own_keys = wg * kOwn * kDqWideKeyTileBytes;
+  float s[KEYS / 2], dp[KEYS / 2];
+  uint32_t dsa[KEYS / 16][4];
+
+  // No `wgmma` sits under a condition (see the kernel above).
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const uint32_t k_tiles = KVs + (kt % kStages) * kStageBytes;
+    const uint32_t v_tiles = k_tiles + NATOM * kDqWideKeyTileBytes;
+    __syncthreads();   // key tile kt has arrived; both warpgroups are done with tile kt - 1
+
+    // S = Q K^T and dP = dO V^T for the block's 64 rows and the tile's 16
+    // keys, over this warpgroup's half of the head width.
+    const uint32_t own_atoms = wg * kOwn * kDqWideQueryTileBytes;
+    const uint64_t q_desc = opaque(tile_descriptor(Qs + own_atoms));
+    const uint64_t do_desc = opaque(tile_descriptor(dOs + own_atoms));
+    const uint64_t k_desc = tile_descriptor(k_tiles + own_keys);
+    const uint64_t v_desc = tile_descriptor(v_tiles + own_keys);
+    open_stage<kOwn, KEYS>(s, dp, acc);
+#pragma unroll
+    for (int ks = 0; ks < kOwn * 4; ++ks) {
+      const uint32_t query_atom = (ks >> 2) * kDqWideQueryTileBytes;
+      const uint32_t key_atom = (ks >> 2) * kDqWideKeyTileBytes;
+      const uint64_t step = (ks & 3) * kDescNextColumns16;
+      wgmma_scores<KEYS>(s, descriptor_plus(q_desc, query_atom) + step,
+                         descriptor_plus(k_desc, key_atom) + step, ks > 0);
+      wgmma_scores<KEYS>(dp, descriptor_plus(do_desc, query_atom) + step,
+                         descriptor_plus(v_desc, key_atom) + step, ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(s);
+    fence_registers(dp);
+    add_partial_scores(s, dp, exchange);
+    score_gradients<KEYS>(s, dp, neg_lse2, neg_di_scaled, scale, scale2, kt * KEYS, n);
+    pack_fragment(dsa[0], dp, 0);
+
+    // dQ += dS K over this warpgroup's atoms.
+    open_stage<kOwn, KEYS>(s, dp, acc);
+    start_dq<kOwn, KEYS>(acc, dsa, k_tiles + own_keys);
+    wgmma_wait<0>();
+    fence_fragments(dsa);
+#pragma unroll
+    for (int a = 0; a < kOwn; ++a) fence_registers(acc[a]);
+  }
+
+  bf16* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int a = 0; a < kOwn; ++a) {
+    store_accumulator(dqb, sdq.n, q0, n, (wg * kOwn + a) * kAtom, width, acc[a], 1.f, 1.f);
+  }
+}
+
+template <int NATOM>
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* d_o,
+                   const float* lse, const float* di, void* dq, int batch, int heads, int n,
+                   int width, const long long* st, float scale, cudaStream_t stream) {
+  // Q and dO resident, the stages of K and V, the exchange of partial
+  // scores, and the slack to align the first tile.
+  const size_t smem = (size_t)2 * NATOM * kDqWideQueryTileBytes +
+                      (size_t)kDqWideStages<NATOM> * 2 * NATOM * kDqWideKeyTileBytes +
+                      kDqWideExchange * sizeof(float) + 1024;
+  auto kernel = flash_bwd_dq_wide_kernel<NATOM>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((n + kDqWideRows - 1) / kDqWideRows, batch * heads);
+  kernel<<<grid, kTcThreads + kCopyThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)d_o, lse, di, (bf16*)dq, heads,
+      n, width, Strides{st[0], st[1], st[2]}, Strides{st[3], st[4], st[5]},
+      Strides{st[6], st[7], st[8]}, Strides{st[9], st[10], st[11]},
+      Strides{st[12], st[13], st[14]}, scale);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace rgie
 
 // q, k, v, d_o, dq: (batch, heads, n, width) with the width axis contiguous;
@@ -880,10 +1088,12 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* d_o, c
 // does not take. Dispatch by shape (``kernel_route`` in
 // ops/kernels/flash_attention.py states the same rule): bfloat16 with a
 // width that is a multiple of 8 up to 128 runs the tensor-core kernel
-// ("tensor"; its tensors 16-byte aligned, strides multiples of 8 elements);
-// float32 up to width 128 the float32 kernel and above 128 the wide float32
-// kernel ("float32"; both 16-byte aligned, strides multiples of 4); every
-// other bfloat16 width the first CUDA-core kernel ("cuda_cores").
+// ("tensor"), bfloat16 with a width that is a multiple of 64 above 128 up to
+// 512 the wide tensor-core kernel ("wide"; both take tensors 16-byte
+// aligned, strides multiples of 8 elements); float32 up to width 128 the
+// float32 kernel and above 128 the wide float32 kernel ("float32"; both
+// 16-byte aligned, strides multiples of 4); every other bfloat16 width the
+// first CUDA-core kernel ("cuda_cores").
 extern "C" int rgie_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                            const void* d_o, const float* lse, const float* di,
                                            void* dq, int batch, int heads, int n, int width,
@@ -904,6 +1114,15 @@ extern "C" int rgie_flash_attention_bwd_dq(const void* q, const void* k, const v
     if (atoms == 2) {
       return launch_dq_tc<2>(q, k, v, d_o, lse, di, dq, batch, heads, n, width, strides, scale,
                              s);
+    }
+    const int wide_atoms = wide_atoms_for_width(width);
+    if (wide_atoms == 4) {
+      return launch_dq_wide<4>(q, k, v, d_o, lse, di, dq, batch, heads, n, width, strides, scale,
+                               s);
+    }
+    if (wide_atoms == 8) {
+      return launch_dq_wide<8>(q, k, v, d_o, lse, di, dq, batch, heads, n, width, strides, scale,
+                               s);
     }
     if (chunks == 1) RGIE_DQ(__nv_bfloat16, 1);
     if (chunks == 2) RGIE_DQ(__nv_bfloat16, 2);

@@ -6,15 +6,18 @@
 //    register-blocked tile products. It serves the bfloat16 head widths the
 //    tensor-core kernels do not take.
 // 2. The tensor-core set (bfloat16): 128-byte swizzled bfloat16 tiles
-//    filled by 16-byte `cp.async` copies, `wgmma` shared-memory descriptors,
-//    the `wgmma` instructions themselves, and the accumulator -> A-fragment
+//    filled by 16-byte `cp.async` copies (`load_rows16_async` for the wide
+//    backward kernels' 16-row tiles), `wgmma` shared-memory descriptors, the
+//    `wgmma` instructions themselves, and the accumulator -> A-fragment
 //    packing with its rounding to bfloat16.
 // 3. The float32 set: float32 tiles filled by 16-byte `cp.async` copies
 //    and the two register-patch products of the float32 forward, dK/dV and
 //    dQ, for any split of a block's threads.
-// 4. The wide float32 backward set (at the end of the file): the score
-//    product split over a warp's lanes and the fold of its partial sums, for
-//    dK/dV and dQ in float32 above width 128.
+// 4. The wide backward set (at the end of the file): named barriers, the
+//    exchange of partial score tiles between the two warpgroups of the wide
+//    bfloat16 dK/dV and dQ (`add_partial_scores`), and, for dK/dV and dQ in
+//    float32 above width 128, the score product split over a warp's lanes
+//    and the fold of its partial sums.
 //
 // Geometry of the CUDA-core set, the same in all three kernels. A block has
 // 256 threads seen as a 16x16 grid (ty = tid / 16, tx = tid % 16). Every tile
@@ -328,6 +331,30 @@ __device__ __forceinline__ void load_tile_async(uint32_t tile, const bf16* base,
   }
 }
 
+// Start the copy of rows [row0, row0 + 16) of a (n_rows, width) bfloat16
+// matrix, all NATOM atoms of it, into NATOM swizzled 16-row tiles
+// `tile_bytes` apart, by 128 threads: thread `loader` copies chunk
+// loader % 8 of row loader / 8 in every atom. Rows past n_rows and columns
+// past `width` become zeros. The thread's addresses are worked out once for
+// all atoms: `load_tile_async` works them out again for every atom, which at
+// 16 rows a tile costs the copying warpgroup more time than the copies take
+// (the wide backward kernels measured 1.2 x faster this way).
+template <int NATOM>
+__device__ __forceinline__ void load_rows16_async(uint32_t tiles, uint32_t tile_bytes,
+                                                  const bf16* base, long long stride, int row0,
+                                                  int n_rows, int width, int loader) {
+  static_assert(kCopyThreads == 16 * 8, "one 16-byte chunk of a 16-row atom a thread");
+  const int r = loader >> 3, c = loader & 7;
+  const bool row_ok = row0 + r < n_rows;
+  const bf16* src = base + (long long)(row0 + r) * stride + c * 8;
+  const uint32_t dst = tiles + swizzled_offset(r, c);
+#pragma unroll
+  for (int a = 0; a < NATOM; ++a) {
+    const bool valid = row_ok && a * kAtom + c * 8 < width;
+    cp_async_16(dst + a * tile_bytes, valid ? src + a * kAtom : base, valid);
+  }
+}
+
 // The `wgmma` descriptor of a swizzled tile (or of a part of it that starts
 // at a multiple of 8 rows): 128-byte swizzle, 8-row groups 1024 bytes apart.
 // The leading offset is not read when the other dimension is one atom.
@@ -337,6 +364,21 @@ __device__ __forceinline__ uint64_t tile_descriptor(uint32_t addr) {
 }
 constexpr uint64_t kDescNextColumns16 = 2;   // K-major: 16 columns = 32 bytes
 constexpr uint64_t kDescNextRows16 = 128;    // MN-major: 16 rows = 2048 bytes
+
+// The descriptor of the tile `bytes` (a multiple of 16) further on: the start
+// address sits in the low bits, in units of 16 bytes.
+__device__ __forceinline__ uint64_t descriptor_plus(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+// A value the compiler must take as new each time: the descriptors of a
+// resident operand's k-steps, derived from it, are then computed where they
+// are used instead of being hoisted out of the tile loop (2 registers each,
+// 128 at width 512, which the wide kernels' sums need).
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
+}
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -446,6 +488,22 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a, u
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 16) = A (64 x 16, K-major tile) . B^T (16 x 16, K-major tile): the
+// score tiles of the wide backward kernels, 16 keys or queries against 64.
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : RGIE_F8(d, 0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64) += A (64 x 16, a register fragment) . B (16 x 64, 16 rows of
 // an MN-major tile).
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
@@ -513,9 +571,9 @@ inline int atoms_for_width(int width) {
   return width <= 64 ? 1 : 2;
 }
 
-// The forward's wide tensor-core kernel takes bfloat16 head widths above 128
-// that are multiples of 64, up to 512, held as 4 (up to 256) or 8 atoms.
-// Returns 0 for any other width.
+// The wide tensor-core kernels (forward, dK/dV, dQ) take bfloat16 head widths
+// above 128 that are multiples of 64, up to 512, held as 4 (up to 256) or 8
+// atoms. Returns 0 for any other width.
 inline int wide_atoms_for_width(int width) {
   if (width <= 128 || width % 64 != 0 || width > 512) return 0;
   return width <= 256 ? 4 : 8;
@@ -667,6 +725,31 @@ __device__ __forceinline__ void barrier_sync(int id, int threads) {
 }
 __device__ __forceinline__ void barrier_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The wide bfloat16 backward kernels split each score product's sum over the
+// head width between their two multiplying warpgroups (half the atoms each)
+// and then add the two halves: each warpgroup writes its partial tiles to
+// its half of `exchange` (2 x N floats a thread, entry i of thread t at
+// i * 128 + t: no bank conflict), waits on named barrier 1 for the other, and
+// adds the other's partial to its own. Both warpgroups add the same two
+// numbers (addition is commutative), so both hold the same bits.
+template <int N>
+__device__ __forceinline__ void add_partial_scores(float (&s)[N], float (&dp)[N], float* exchange) {
+  const int t = threadIdx.x & 127, wg = threadIdx.x >> 7;
+  float* mine = exchange + wg * 2 * N * 128 + t;
+  const float* theirs = exchange + (1 - wg) * 2 * N * 128 + t;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    mine[i * 128] = s[i];
+    mine[(N + i) * 128] = dp[i];
+  }
+  barrier_sync(1, kTcThreads);
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    s[i] += theirs[i * 128];
+    dp[i] += theirs[(N + i) * 128];
+  }
 }
 
 // VEC consecutive floats (16- or 8-byte aligned) of shared memory into

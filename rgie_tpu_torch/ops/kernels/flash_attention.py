@@ -23,9 +23,13 @@ Inside each C entry point a second dispatch goes by shape, the rule
 - ``"tensor"``: bfloat16 at head widths that are multiples of 8 up to 128,
   in all three (``wgmma``, bfloat16 tiles in shared memory, ``cp.async``
   ring);
-- ``"wide"``: the forward in bfloat16 at widths above 128 that are multiples
-  of 64, up to 512 (the VAE's single 512-wide head), on the tensor cores, its
-  output split by columns over two warpgroups;
+- ``"wide"``: bfloat16 at widths above 128 that are multiples of 64, up to
+  512 (the VAE's single 512-wide head), in all three, on the tensor cores:
+  the forward and dQ with 64 query rows a block, their output split by
+  columns over two warpgroups that each compute the whole score tile; dK/dV
+  with 64 keys a block, K and V resident, 16-query tiles streamed, the
+  output columns split over ``grid.z`` above width 256 and over the two
+  warpgroups;
 - ``"float32"``: all three at every float32 width, on the CUDA cores with a
   ``cp.async`` ring, the query tile (forward, dQ) or the key tile (dK/dV)
   resident, and 8 x 8 or 8 x 16 register patches, a tile's products split
@@ -97,8 +101,9 @@ def kernel_route(kernel: str, dtype: torch.dtype, width: int) -> str:
     for this type and head width: ``"tensor"``, ``"wide"``, ``"float32"`` or
     ``"cuda_cores"`` (the same rule is written
     out in each source's ``extern "C"`` function): bfloat16 at multiples of 8
-    up to 128 on the tensor cores in all three; the forward in bfloat16 also
-    at multiples of 64 above 128 up to 512 (``"wide"``); float32 at every
+    up to 128 on the tensor cores in all three; bfloat16 at multiples of 64
+    above 128 up to 512 on the wide tensor-core kernels in all three
+    (``"wide"``); float32 at every
     width on the float32 kernels in all three (dK/dV and dQ above 128 on
     their wide float32 kernels); the other bfloat16 widths on the first
     CUDA-core kernels."""
@@ -113,7 +118,7 @@ def kernel_route(kernel: str, dtype: torch.dtype, width: int) -> str:
         return "float32"
     if width <= 128 and width % 8 == 0:
         return "tensor"
-    if kernel == "fwd" and width > 128 and width % 64 == 0:
+    if width > 128 and width % 64 == 0:
         return "wide"
     return "cuda_cores"
 

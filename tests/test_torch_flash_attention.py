@@ -176,10 +176,10 @@ def test_kernel_route_table_over_widths(dtype):
             expect = dict.fromkeys(FA.KERNELS, "float32")
         elif width <= 128 and width % 8 == 0:
             expect = dict.fromkeys(FA.KERNELS, "tensor")
+        elif width > 128 and width % 64 == 0:
+            expect = dict.fromkeys(FA.KERNELS, "wide")
         else:
-            wide = width > 128 and width % 64 == 0
-            expect = {"fwd": "wide" if wide else "cuda_cores", "bwd_dkv": "cuda_cores",
-                      "bwd_dq": "cuda_cores"}
+            expect = dict.fromkeys(FA.KERNELS, "cuda_cores")
         got = {kn: FA.kernel_route(kn, dtype, width) for kn in FA.KERNELS}
         assert got == expect, width
     for width in (0, 6, 516, 1024):
@@ -280,9 +280,10 @@ def cuda_device():
 def test_kernels_match_plain_on_the_card(cuda_device, shape, dtype):
     """In bfloat16 the widths 8, 32, 64, 72 and 128 run all three kernels on
     the tensor cores (zero-filled to 64 or 128 columns), at a ragged N too;
-    192, 256 and 512 run the forward's wide tensor-core kernel and the
-    backward on the CUDA cores; 36 and 136 run the first CUDA-core kernels
-    throughout. float32 runs the float32 kernels at every width
+    192, 256 and 512 run all three on the wide tensor-core kernels (192
+    zero-filled to 256 columns; dK/dV in one group of output columns at 192
+    and 256, two at 512), at a ragged N (700, 1000, 2100) too; 36 and 136 run
+    the first CUDA-core kernels throughout. float32 runs the float32 kernels at every width
     (``kernel_route``): the forward, and dK/dV and dQ up to 128 (zero-filled
     to 64 or 128 columns); above 128 dK/dV and dQ run the wide float32
     kernels, at 136, 192 and 256 with 2 groups of 128 columns (136 and 192
@@ -320,8 +321,9 @@ def test_tensor_core_kernels_take_any_scale(cuda_device, scale, width):
     the row maximum over the raw scores and fold the scale into the exponent:
     a negative or zero scale, on a ragged shape, goes through the branches
     that a positive one does not. dK/dV and dQ (on the tensor cores at width
-    64) fold it into the exponent and into dS; at scale 0 dS is 0 and the
-    keys past N are set to 0, not multiplied to it."""
+    64, on the wide tensor-core kernels at 512) fold it into the exponent and
+    into dS; at scale 0 dS is 0 and the keys past N are set to 0, not
+    multiplied to it."""
     scale = scale * (64.0 / width) ** 0.5     # the same spread of scores at both widths
     q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16).transpose(1, 2)
                    for a in _qkv(11, (1, 300, 2, width)))
@@ -402,6 +404,50 @@ def test_wide_float32_backward_reads_a_strided_output_gradient(cuda_device, widt
     torch.cuda.synchronize()
     for got, contiguous, again in zip(*results):
         assert torch.equal(got, contiguous) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [192, 512])
+def test_wide_bf16_backward_reads_a_strided_output_gradient(cuda_device, width):
+    """A bfloat16 dO whose row stride is the width plus 8 (a multiple of 8:
+    the 16-byte copies take it) is read in place by the wide tensor-core
+    dK/dV and dQ: the gradients equal those of the same values held
+    contiguously, and two calls give the same bits."""
+    b, h, n = 1, 2, 333
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16).transpose(1, 2)
+                   for a in _qkv(9, (b, n, h, width)))
+    padded = torch.zeros(b, h, n, width + 8, dtype=torch.bfloat16, device=cuda_device)
+    padded[..., :width] = do
+    view = padded[..., :width]
+    assert FA._strided(view) is view
+    assert FA.kernel_route("bwd_dkv", torch.bfloat16, width) == "wide"
+    results = []
+    for grad_out in (view, do.contiguous(), view):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = FA.flash_attention(*leaves, sm_scale=width ** -0.5)
+        results.append(torch.autograd.grad(out, leaves, grad_out))
+    torch.cuda.synchronize()
+    for got, contiguous, again in zip(*results):
+        assert torch.equal(got, contiguous) and torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_wide_bf16_backward_repeats_bit_for_bit(cuda_device):
+    """The wide tensor-core dK/dV and dQ sum every output element in a fixed
+    order, without atomics: two calls at (1, 1, 2100, 512) (two groups of
+    output columns, a ragged last tile) give the same bits."""
+    q, k, v, do = (torch.from_numpy(a).to(cuda_device).to(torch.bfloat16).transpose(1, 2)
+                   for a in _qkv(17, (1, 2100, 1, 512)))
+    scale = 512 ** -0.5
+    o, lse = FA.flash_attention_with_lse(q, k, v, scale)
+    di = FA._row_delta(o, do)
+    q, k, v, do = (FA._strided(t) for t in (q, k, v, do))
+    calls = [FA._launch_bwd_dkv(q, k, v, do, lse, di, scale)
+             + (FA._launch_bwd_dq(q, k, v, do, lse, di, scale),) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*calls):
+        assert torch.equal(first, second)
+        assert bool(torch.isfinite(first).all())
 
 
 @pytest.mark.cuda

@@ -32,7 +32,8 @@ def _rel(got, expect):
     return float(np.abs(got - expect).max() / np.abs(expect).max())
 
 
-@pytest.mark.parametrize("shape", [(1, 2, 256, 64), (1, 1, 256, 128), (1, 1, 256, 512)])
+@pytest.mark.parametrize("shape", [(1, 2, 256, 64), (1, 1, 256, 128), (1, 2, 256, 256),
+                                   (1, 1, 256, 512)])
 def test_plain_bf16_matches_the_tpu_kernels_in_interpret_mode(shape):
     import jax
     import jax.numpy as jnp
@@ -113,17 +114,20 @@ def test_plain_float32_is_bit_identical_without_the_rounding_code(monkeypatch, n
     ("fwd", torch.bfloat16, 64, "tensor", 8), ("fwd", torch.bfloat16, 8, "tensor", 8),
     ("fwd", torch.bfloat16, 128, "tensor", 8), ("fwd", torch.bfloat16, 36, "cuda_cores", 4),
     ("fwd", torch.bfloat16, 136, "cuda_cores", 4),
-    # Above 128 the forward alone has a tensor-core kernel, at multiples of
-    # 64; a tensor any kernel reads that way is loaded 8 elements at a time.
-    ("bwd_dkv", torch.bfloat16, 512, "cuda_cores", 8),
+    # Above 128 all three have a wide tensor-core kernel, at multiples of 64;
+    # a tensor any kernel reads that way is loaded 8 elements at a time.
+    ("bwd_dkv", torch.bfloat16, 512, "wide", 8),
     ("fwd", torch.bfloat16, 192, "wide", 8), ("fwd", torch.bfloat16, 256, "wide", 8),
     ("fwd", torch.bfloat16, 512, "wide", 8), ("fwd", torch.bfloat16, 200, "cuda_cores", 4),
     ("fwd", torch.float32, 512, "float32", 4),
     ("bwd_dkv", torch.bfloat16, 64, "tensor", 8), ("bwd_dkv", torch.bfloat16, 136, "cuda_cores", 4),
-    ("bwd_dkv", torch.bfloat16, 256, "cuda_cores", 8),
+    ("bwd_dkv", torch.bfloat16, 256, "wide", 8),
+    ("bwd_dkv", torch.bfloat16, 192, "wide", 8), ("bwd_dkv", torch.bfloat16, 448, "wide", 8),
+    ("bwd_dkv", torch.bfloat16, 200, "cuda_cores", 4), ("bwd_dq", torch.bfloat16, 320, "wide", 8),
+    ("bwd_dq", torch.bfloat16, 256, "wide", 8), ("bwd_dq", torch.bfloat16, 200, "cuda_cores", 4),
     ("bwd_dq", torch.bfloat16, 8, "tensor", 8), ("bwd_dq", torch.bfloat16, 64, "tensor", 8),
     ("bwd_dq", torch.bfloat16, 128, "tensor", 8), ("bwd_dq", torch.bfloat16, 136, "cuda_cores", 4),
-    ("bwd_dq", torch.bfloat16, 512, "cuda_cores", 8), ("bwd_dq", torch.float32, 64, "float32", 4),
+    ("bwd_dq", torch.bfloat16, 512, "wide", 8), ("bwd_dq", torch.float32, 64, "float32", 4),
     # float32 dQ: the float32 kernels at every width, as dK/dV (the wide one
     # above 128).
     ("bwd_dq", torch.float32, 36, "float32", 4), ("bwd_dq", torch.float32, 128, "float32", 4),
@@ -214,6 +218,57 @@ def test_float32_dispatch_in_the_source_follows_kernel_route(kernel, launcher):
         assert FA.kernel_route(kernel, torch.float32, width) == "float32", width
 
 
+def _wide_atoms_for_width():
+    """``wide_atoms_for_width`` of the shared header as a Python function, its
+    thresholds read from the source."""
+    import re
+
+    from rgie_tpu_torch.ops.kernels import build
+
+    common = (build.CSRC_DIR / "flash_attention_common.cuh").read_text()
+    body = common[common.index("inline int wide_atoms_for_width(int width) {"):]
+    body = body[:body.index("\n}\n")]
+    low, step, high, split, few, many = map(int, re.fullmatch(
+        r"\s*if \(width <= (\d+) \|\| width % (\d+) != 0 \|\| width > (\d+)\) return 0;"
+        r"\s*return width <= (\d+) \? (\d+) : (\d+);\s*",
+        body[body.index("{") + 1:]).groups())
+    return lambda w: 0 if w <= low or w % step != 0 or w > high else (few if w <= split else many)
+
+
+@pytest.mark.parametrize("kernel,launcher", [("bwd_dkv", "launch_dkv_wide"),
+                                             ("bwd_dq", "launch_dq_wide")])
+def test_bf16_dispatch_in_the_source_follows_kernel_route(kernel, launcher):
+    """The bfloat16 block of a backward kernel's ``extern "C"`` entry point
+    sends the widths ``wide_atoms_for_width`` takes (4 or 8 atoms) to its
+    wide tensor-core kernel, after the tensor-core widths and before the
+    first CUDA-core kernels: exactly the widths ``kernel_route`` calls
+    ``"wide"``, each with the atoms its width needs."""
+    import re
+
+    from rgie_tpu_torch.ops.kernels import build
+
+    text = (build.CSRC_DIR / f"flash_attention_{kernel}.cu").read_text()
+    entry = text[text.index(f'extern "C" int rgie_flash_attention_{kernel}('):]
+    bf16_part = entry[entry.index("if (is_bf16) {"):]
+    bf16_part = bf16_part[:bf16_part.index("\n  }\n")]
+    order = [bf16_part.index(key) for key in (
+        "atoms_for_width(width);", "const int wide_atoms = wide_atoms_for_width(width);",
+        f"{launcher}<", "(__nv_bfloat16, 8)")]
+    assert order == sorted(order)
+    sent = {int(a): int(n) for a, n in re.findall(
+        r"if \(wide_atoms == (\d)\) \{\s*return " + launcher + r"<(\d)>\(", bf16_part)}
+    assert sent == {4: 4, 8: 8}
+    atoms = _wide_atoms_for_width()
+    wide = {w for w in range(4, 513, 4) if atoms(w) in sent}
+    assert wide == {w for w in range(4, 513, 4)
+                    if FA.kernel_route(kernel, torch.bfloat16, w) == "wide"}
+    assert wide == {192, 256, 320, 384, 448, 512}
+    assert {w: atoms(w) for w in sorted(wide)} == {192: 4, 256: 4, 320: 8, 384: 8, 448: 8,
+                                                    512: 8}
+    for width in (136, 200, 260, 500):      # not multiples of 64: the first CUDA-core kernels
+        assert atoms(width) == 0 and FA.kernel_route(kernel, torch.bfloat16, width) == "cuda_cores"
+
+
 def test_kernel_sources_name_both_routes():
     from rgie_tpu_torch.ops.kernels import build
 
@@ -223,6 +278,9 @@ def test_kernel_sources_name_both_routes():
         text = (build.CSRC_DIR / f"{name}.cu").read_text()
         assert "atoms_for_width(width)" in text and "chunks_for_width(width)" in text
         assert "atomicAdd" not in text
-    # The forward alone has a second tensor-core kernel, for the wide heads.
-    fwd = (build.CSRC_DIR / "flash_attention_fwd.cu").read_text()
-    assert "wide_atoms_for_width(width)" in fwd and "wide_atoms_for_width" in common
+    # All three have a second tensor-core kernel, for the wide heads.
+    assert "inline int wide_atoms_for_width(int width)" in common
+    wide_kernels = ("flash_fwd_wide_kernel", "flash_bwd_dkv_wide_kernel", "flash_bwd_dq_wide_kernel")
+    for name, kernel in zip(FA.KERNEL_SOURCES, wide_kernels):
+        text = (build.CSRC_DIR / f"{name}.cu").read_text()
+        assert "wide_atoms_for_width(width)" in text and f"{kernel}(" in text
