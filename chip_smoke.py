@@ -198,7 +198,27 @@ Phases (every check raises; nothing is caught):
    barrier. A failed rank fails the run. Seconds, img/s and peak memory per
    rank and for one process at the same global batch are printed (two ranks
    on one card measure overhead and contention, not scaling).
-23. Each path is driven with the launch counts set to 0 just before it and
+23. The model axis (tensor parallelism over weight output channels): (a)
+   two ranks at (data, model) = (1, 2) share the card in a ``gloo`` group
+   (``parallel.spawn_ranks``); each builds phase 7's stack through the
+   diffusion CLI's ``build_models`` (seed 0, phase 15's midu), puts the
+   UNet, VAE and midu through ``parallel.shard_model`` and runs
+   ``make_batched_edit`` in bfloat16 on phase 22's two 1024 px images at
+   ``M_DIFF_STEPS`` DDIM steps and ``M_NTO_STEPS`` null-text inner steps
+   (steps cut, never width). Checks: each rank's rows against the
+   one-process edit of the same images on phase 7's stack (made after phase
+   16) by phase 22's rule (``F_DIFF_ATOL``, the mean distance); the two
+   ranks' outputs, scores, guidance norms, null-text steps, embeddings and
+   Adam moments bit-equal; each rank's K2 launch counts equal the
+   one-process derivation; each rank's UNet + VAE + midu parameter bytes at
+   most ``M_SHARD_SHARE`` of one process's. Per-rank seconds, peak memory
+   and the time of one 42 MB gather (``all_gather`` against an all-reduce
+   of a zero-filled buffer) are printed. (b) four ranks at ``M_TRAIN_MESH``
+   = (2, 2): one step of phase 22's SD-width midu, sharded, each data group
+   on half of fixed features, against the one-process step on all of them
+   (phase 18's limits); the gathered state dicts equal on all four ranks.
+   A failed rank or collective fails the run.
+24. Each path is driven with the launch counts set to 0 just before it and
    read just after. One JSON line ``{"kernels": [...]}`` (the K2 entries'
    times are bfloat16's, the type the full-width path runs by default, with
    float32's beside them under ``float32_*``, the wide kernels at the VAE's
@@ -309,6 +329,16 @@ REPORT_SCALE, REPORT_IMAGES, REPORT_STEPS, REPORT_DIFF_STEPS, REPORT_NTO_STEPS =
 F_RANKS, F_PARAM_STEPS, F_DIFF_STEPS, F_GAN_SIZE, F_GAN_STEPS = 2, 10, 2, 256, 5
 F_PARAM_BATCH, F_TRAIN_BATCH, F_DIFF_BATCH, F_GAN_BATCH = 4, 8, 2, 4
 F_ROW_ATOL, F_GAN_ROW_ATOL, F_DIFF_ATOL = 1e-3, 2.0 ** -5, 2.0 ** -5
+# The model axis (phase 23): two ranks at (data, model) = (1, 2) share the
+# card in a gloo group and edit phase 22's two diffusion images with UNet,
+# VAE and midu sharded over output channels, at M_DIFF_STEPS DDIM steps and
+# M_NTO_STEPS null-text inner steps (cut from the CLI's 50 and 10: every
+# gathered activation crosses gloo through host memory; the phase prints the
+# gathers and their bytes), against one process on the same weights and
+# steps; rows by phase 22's rule (F_DIFF_ATOL, the mean distance); each rank
+# at most M_SHARD_SHARE of one process's UNet + VAE + midu parameter bytes.
+# Then four ranks at (2, 2): one midu training step.
+M_RANKS, M_DIFF_STEPS, M_NTO_STEPS, M_SHARD_SHARE, M_TRAIN_MESH = 2, 1, 1, 0.55, (2, 2)
 
 # K2 against its plain version. float32: both sum in float32 in different
 # orders; outputs and log-sum-exp are of order 1 or smaller, gradients are
@@ -2100,8 +2130,6 @@ def slice_f_phase(device, work, rng, card, midu_path, train_single, diffusion_si
     training is phase 15's run), then a one-rank NCCL group. Returns the K1
     and K2 launch counts by path."""
     from rgie_tpu_torch import parallel as PAR
-    from rgie_tpu_torch.config import TrainGuidanceConfig
-    from rgie_tpu_torch.training import create_train_state, make_train_step
 
     t_phase = time.perf_counter()
     write_feed(os.path.join(work, "f_param_feed"), rng, F_PARAM_BATCH, EDIT_SIZE)
@@ -2162,29 +2190,12 @@ def slice_f_phase(device, work, rng, card, midu_path, train_single, diffusion_si
     (p0, g0, l0), (p1, g1, l1) = (rank["ddp"] for rank in ranks)
     check(np.array_equal(p0, p1) and np.array_equal(g0, g1) and l0 == l1,
           "slice F DDP step: the ranks differ")
-    cfg = TrainGuidanceConfig()
-    midu = slice_f_midu()
-    p_init = torch.cat([p.detach().flatten() for p in midu.parameters()])
-    state, loss, _ = make_train_step()(create_train_state(midu.to(device), cfg),
-                                       torch.from_numpy(feats).to(device),
-                                       torch.from_numpy(labels).to(device))
-    p_one = torch.cat([p.detach().flatten() for p in state.model.parameters()]).cpu()
-    g_one = torch.cat([p.grad.flatten() for p in state.model.parameters()]).cpu()
-    g_eff = (g_one + cfg.weight_decay * p_init).abs()
-    settled = g_eff > MIDU_SETTLED * g_eff.max()
-    apart = (torch.from_numpy(p0) - p_one).abs()[settled]
-    e_grad = rel_err(torch.from_numpy(g0), g_one)
-    print(f"slice F DDP midu step ({F_TRAIN_BATCH} rows of (8, 8, 1280) features, "
-          f"{F_TRAIN_BATCH // F_RANKS} a rank) against one process on all: loss {l0:.7f} vs "
-          f"{float(loss):.7f}, gradients {e_grad:.3e} of the largest entry (limit "
-          f"{MIDU_RTOL:g}); updates at the {int(settled.sum())} of {p_one.numel()} settled "
-          f"entries apart by at most {float(apart.max()):.3e} (limit a hundredth of lr and a "
-          f"rounding); the ranks bit-identical; the training CLI's midus bit-identical, "
-          f"checkpoint written by rank 0 only")
-    check(abs(l0 - float(loss)) <= MIDU_RTOL * abs(float(loss)), "slice F DDP loss")
-    check(e_grad <= MIDU_RTOL, "slice F DDP gradients")
-    check(bool((apart <= 1e-2 * cfg.learning_rate + p_init.abs()[settled] * 2.0 ** -23).all()),
-          "slice F DDP updates")
+    check_midu_step(f"slice F DDP midu step ({F_TRAIN_BATCH} rows of (8, 8, 1280) features, "
+                    f"{F_TRAIN_BATCH // F_RANKS} a rank) against one process on all",
+                    *one_process_midu_step(feats, labels, device), torch.from_numpy(p0),
+                    torch.from_numpy(g0), l0)
+    print("slice F: the DDP ranks bit-identical; the training CLI's midus bit-identical, "
+          "checkpoint written by rank 0 only")
 
     # (c) the diffusion CLI: rank r edits image r + 1 alone
     def by_name(batches):
@@ -2246,6 +2257,313 @@ def slice_f_phase(device, work, rng, card, midu_path, train_single, diffusion_si
                        "slice F parametric edit, one process": single["param"]["launches"][0]},
             "k2": {f"slice F diffusion edit, rank {r}": k2_by_rank[r] for r in range(F_RANKS)} | {
                 "slice F diffusion edit, one process": single["diffusion"]["launches"][1:]}}
+
+
+def param_bytes(*modules):
+    return sum(p.numel() * p.element_size() for m in modules for p in m.parameters())
+
+
+def model_axis_edit(stack, work, midu_path):
+    """Phase 23's batched edit through ``make_batched_edit``: phase 22's
+    diffusion feed, prepared and conditioned as ``adapt_batches`` does it,
+    the CLI's options at ``M_DIFF_STEPS`` DDIM steps and ``M_NTO_STEPS``
+    null-text inner steps, on ``stack`` (sharded or not). Returns the
+    outputs, the state the ranks must agree on, the K2 launches, the seconds
+    and the peak memory."""
+    import dataclasses
+
+    from rgie_tpu_torch.cli import adapt_images as cli
+    from rgie_tpu_torch.data import CaptionFeedDataset, first_caption
+    from rgie_tpu_torch.data.dataset import load_image_rgb
+    from rgie_tpu_torch.diffusion import schedulers as SCH
+    from rgie_tpu_torch.diffusion.batched import make_batched_edit
+    from rgie_tpu_torch.diffusion.pipeline import RunLog
+
+    args = cli.build_parser().parse_args(slice_f_argv("diffusion", work, "model_axis", midu_path))
+    args.num_steps = M_DIFF_STEPS
+    pipe = dataclasses.replace(stack.pipe, sched=SCH.make_schedule(args.num_steps))
+    adapter = cli.make_adapter(stack._replace(pipe=pipe))
+    gcfg, acfg = cli.make_configs(args)
+    # Every item, in every rank of a model group (``feed_items`` would give
+    # each process its data share).
+    feed = CaptionFeedDataset(args.data_dir)
+    items = [(name, path, first_caption(captions))
+             for _, (name, path, captions) in (feed[i] for i in range(len(feed)))]
+    images = torch.stack([cli.transform_image(load_image_rgb(path), stack.input_size)[0]
+                          for _, path, _ in items]).to(pipe.device)
+    conds = cli.batch_conds(adapter, gcfg, [caption for _, _, caption in items])
+    empty = adapter.embeds_fn("", "")
+    alphas = torch.full((len(items), 2), gcfg.reference_value or 0.0, device=pipe.device)
+    program = make_batched_edit(
+        pipe, guidance_scale=gcfg.cfg_scale, guidance_clf_scale=gcfg.clf_scale,
+        use_nto=gcfg.is_nto, use_reference=gcfg.reference_value is not None,
+        end_iteration=acfg.resolved_end_iteration(), midu_is_minimized=not gcfg.max,
+        num_inner_steps=M_NTO_STEPS)
+    log = RunLog()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    out = program(images, empty, conds, alphas, log=log)
+    torch.cuda.synchronize()
+    run = {"seconds": time.perf_counter() - t0, "peak": torch.cuda.max_memory_allocated(),
+           "launches": kernel_launches(), "names": [name for name, _, _ in items],
+           "steps": log.nto_image_steps, "inner": log.nto_inner_steps,
+           "phases": dict(log.seconds)}
+    for name, value in (("edited", out.edited), ("orig_score", out.orig_score),
+                        ("adapted_score", out.adapted_score),
+                        ("norms", torch.stack(log.clf_grad_norms)),
+                        *((k, log.tensors[k]) for k in ("nto_embeds", "nto_adam_m", "nto_adam_v",
+                                                        "out_latents"))):
+        run[name] = value.float().cpu().numpy()
+    return run
+
+
+def model_axis_reference(stack, work, midu_path):
+    """Phase 23's one-process edit, made after phase 22's on phase 7's stack
+    (the weights the diffusion CLI builds from seed 0 with phase 15's midu)
+    and phase 22's feed."""
+    run = model_axis_edit(stack, work, midu_path)
+    run["bytes"] = param_bytes(stack.pipe.unet, stack.pipe.vae, stack.pipe.midu_model)
+    return run
+
+
+def time_gathers(mesh, device, reps=5):
+    """Median ms of one gather over the model group of a bfloat16 activation
+    of the UNet's top level (the CFG pair of 2 images: (4, 320, 128, 128)):
+    the port's (``all_gather``) and, in alternation, the same result from an
+    all-reduce of a zero-filled full buffer holding the rank's slice."""
+    import torch.distributed as dist
+
+    from rgie_tpu_torch.parallel.model_axis import ModelAxis, gather
+
+    axis = ModelAxis(mesh.model_group(), mesh.coords()[1], mesh.model)
+    local = torch.randn(4, 320 // mesh.model, 128, 128, device=device).to(torch.bfloat16)
+
+    def all_reduce():
+        full = local.new_zeros(4, 320, 128, 128)
+        full[:, axis.index * local.shape[1]:(axis.index + 1) * local.shape[1]] = local
+        dist.all_reduce(full, group=axis.group)
+        return full
+
+    fns = {"all_gather": lambda: gather(local, 1, axis), "all-reduce": all_reduce}
+    times = {name: [] for name in fns}
+    for rep in range(reps + 1):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if rep:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def model_axis_edit_rank(work, midu_path):
+    """One rank of phase 23 (a): the diffusion CLI's models from seed 0 with
+    phase 15's midu, UNet, VAE and midu sharded over a (1, M_RANKS) mesh,
+    then ``model_axis_edit``."""
+    from rgie_tpu_torch import parallel as PAR
+    from rgie_tpu_torch.cli import adapt_images as cli
+    from rgie_tpu_torch.parallel import model_axis as MA
+
+    device = PAR.process_device("cuda")
+    mesh = PAR.create_mesh((1, M_RANKS))
+    args = cli.build_parser().parse_args(slice_f_argv("diffusion", work, "model_axis", midu_path))
+    t0 = time.perf_counter()
+    stack = cli.build_models(args, torch.Generator().manual_seed(args.seed), device)
+    pipe = stack.pipe
+    whole = param_bytes(pipe.unet, pipe.vae, pipe.midu_model)
+    for module in (pipe.unet, pipe.vae, pipe.midu_model):
+        PAR.shard_model(module, mesh)
+    torch.cuda.empty_cache()
+    build_s = time.perf_counter() - t0
+    gather_ms = time_gathers(mesh, device)
+    # Count the edit's gathers and the full-width bytes they assemble.
+    gathered, plain_gather = [0, 0], MA._gather
+
+    def counted_gather(local, dim, axis):
+        gathered[0] += 1
+        gathered[1] += local.numel() * local.element_size() * axis.size
+        return plain_gather(local, dim, axis)
+
+    MA._gather = counted_gather
+    try:
+        run = model_axis_edit(stack, work, midu_path)
+    finally:
+        MA._gather = plain_gather
+    run.update(device=str(device), coords=mesh.coords(), build_s=build_s, whole_bytes=whole,
+               gather_ms=gather_ms, gathers=gathered[0], gathered_bytes=gathered[1],
+               bytes=param_bytes(pipe.unet, pipe.vae, pipe.midu_model),
+               dtype=str(next(pipe.unet.parameters()).dtype))
+    return run
+
+
+def one_process_midu_step(feats, labels, device):
+    """One plain step of phase 22's SD-width midu on all of ``feats``: the
+    initial and updated parameters, the gradients (flat, in ``parameters()``
+    order) and the loss."""
+    from rgie_tpu_torch.config import TrainGuidanceConfig
+    from rgie_tpu_torch.training import create_train_state, make_train_step
+
+    midu = slice_f_midu()
+    p_init = torch.cat([p.detach().flatten() for p in midu.parameters()])
+    state, loss, _ = make_train_step()(create_train_state(midu.to(device), TrainGuidanceConfig()),
+                                       torch.from_numpy(feats).to(device),
+                                       torch.from_numpy(labels).to(device))
+    p_one = torch.cat([p.detach().flatten() for p in state.model.parameters()]).cpu()
+    g_one = torch.cat([p.grad.flatten() for p in state.model.parameters()]).cpu()
+    return p_init, p_one, g_one, float(loss)
+
+
+def check_midu_step(what, p_init, p_one, g_one, loss_one, params, grads, loss):
+    """Phase 18's limits on a step against the one-process step: the loss and
+    the gradients ``MIDU_RTOL``, the updates within a hundredth of lr (and a
+    rounding) where the gradient with the L2 term is settled."""
+    from rgie_tpu_torch.config import TrainGuidanceConfig
+
+    lr, wd = TrainGuidanceConfig().learning_rate, TrainGuidanceConfig().weight_decay
+    g_eff = (g_one + wd * p_init).abs()
+    settled = g_eff > MIDU_SETTLED * g_eff.max()
+    apart = (params - p_one).abs()[settled]
+    e_grad = rel_err(grads, g_one)
+    print(f"{what}: loss {loss:.7f} vs {loss_one:.7f}, gradients {e_grad:.3e} of the largest "
+          f"entry (limit {MIDU_RTOL:g}); updates at the {int(settled.sum())} of {p_one.numel()} "
+          f"settled entries apart by at most {float(apart.max()):.3e} (limit a hundredth of lr "
+          f"and a rounding)")
+    check(abs(loss - loss_one) <= MIDU_RTOL * abs(loss_one), f"{what}: loss")
+    check(e_grad <= MIDU_RTOL, f"{what}: gradients")
+    check(bool((apart <= 1e-2 * lr + p_init.abs()[settled] * 2.0 ** -23).all()),
+          f"{what}: updates")
+
+
+def model_axis_train_rank(feats, labels, t_spawn):
+    """One rank of phase 23 (b): phase 22's SD-width midu sharded over a
+    ``M_TRAIN_MESH`` mesh (the second data group starting from other
+    weights, which ``shard_train_step``'s broadcasts replace), one step on
+    its data group's rows. Returns the gathered state dict, this rank's
+    gradients and shards, and the loss."""
+    from rgie_tpu_torch import parallel as PAR
+    from rgie_tpu_torch.config import TrainGuidanceConfig
+    from rgie_tpu_torch.parallel.model_axis import model_shards
+    from rgie_tpu_torch.training import create_train_state
+    from rgie_tpu_torch.training.train_midu import shard_train_step
+
+    laps = {"start and group": time.time() - t_spawn}
+    t0 = time.perf_counter()
+    device = PAR.process_device("cuda")
+    mesh = PAR.create_mesh(M_TRAIN_MESH)
+    d, j = mesh.coords()
+    laps["device and mesh"] = time.perf_counter() - t0
+    midu = PAR.shard_model(slice_f_midu().to(device), mesh)
+    with torch.no_grad():
+        for p in midu.parameters():
+            p.add_(d)
+    step, state = shard_train_step(create_train_state(midu, TrainGuidanceConfig()), mesh)
+    laps["midu and broadcasts"] = time.perf_counter() - t0 - sum(list(laps.values())[1:])
+    n = len(feats) // mesh.data
+    state, loss, _ = step(state, torch.from_numpy(feats[d * n:(d + 1) * n]).to(device),
+                          torch.from_numpy(labels[d * n:(d + 1) * n]).to(device))
+    laps["step"] = time.perf_counter() - t0 - sum(list(laps.values())[1:])
+    full = {k: v.cpu().numpy() for k, v in state.model.state_dict().items()}
+    laps["state dict"] = time.perf_counter() - t0 - sum(list(laps.values())[1:])
+    return {"coords": (d, j), "loss": float(loss), "shards": model_shards(state.model),
+            "state": full, "laps": laps, "end": time.time(),
+            "grads": {k: p.grad.cpu().numpy() for k, p in state.model.named_parameters()}}
+
+
+def model_axis_phase(device, work, rng, card, midu_path, single):
+    """Phase 23, the model axis: (a) the batched edit over M_RANKS ranks at
+    (1, M_RANKS) against the one-process edit of phase 22's images made
+    after phase 16; (b) a midu step over four ranks at M_TRAIN_MESH against
+    one process. Returns the K2 launch counts by path."""
+    from rgie_tpu_torch import parallel as PAR
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ranks = PAR.spawn_ranks(model_axis_edit_rank, M_RANKS, work, midu_path, backend="gloo",
+                            timeout=600)
+    ranks_s = time.perf_counter() - t0
+    across = float(np.abs(single["edited"][0] - single["edited"][1]).mean())
+    want_fwd, want_bwd = expected_flash_launches(M_DIFF_STEPS, single["inner"])
+    print(f"model axis, one process: {single['seconds']:.3f} s for {F_DIFF_BATCH} "
+          f"{DIFFUSION_SIZE} px images at {M_DIFF_STEPS} DDIM steps and {M_NTO_STEPS} null-text "
+          f"inner steps (per image {single['steps']}), peak {single['peak'] / 2**30:.2f} GiB, "
+          f"UNet + VAE + midu {single['bytes'] / 2**30:.3f} GiB, K1/K2 launches "
+          f"{single['launches']}")
+    check(single["launches"][1:] == (want_fwd, want_bwd, want_bwd),
+          "model axis: one-process K2 launch counts")
+    for r, rank in enumerate(ranks):
+        counts = rank["launches"][1:]
+        want_fwd, want_bwd = expected_flash_launches(M_DIFF_STEPS, rank["inner"])
+        apart = np.abs(rank["edited"] - single["edited"])
+        share = rank["bytes"] / rank["whole_bytes"]
+        phases = ", ".join(f"{k} {v:.3f}" for k, v in rank["phases"].items())
+        print(f"model axis edit, rank {r} at (data, model) {rank['coords']} on {rank['device']}, "
+              f"{rank['dtype']}: models built and sharded in {rank['build_s']:.1f} s; edit "
+              f"{rank['seconds']:.3f} s, peak {rank['peak'] / 2**30:.2f} GiB; UNet + VAE + midu "
+              f"{rank['bytes'] / 2**30:.3f} of {rank['whole_bytes'] / 2**30:.3f} GiB "
+              f"({share:.4f}; limit {M_SHARD_SHARE}); a 42 MB bfloat16 gather "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in rank["gather_ms"].items())
+              + f"; the edit's gathers {rank['gathers']}, {rank['gathered_bytes'] / 1e9:.2f} GB "
+              f"full width; null-text steps {rank['steps']}; K2 "
+              f"launches {counts}, expected ({want_fwd}, {want_bwd}, {want_bwd}); rows against "
+              f"the one-process rows: mean {float(apart.mean()):.3e} (limit {F_DIFF_ATOL:g}), max "
+              f"{float(apart.max()):.3e}; the two images' rows {across:.3e} apart on average; "
+              f"seconds per phase: {phases}; on {card} (two ranks share one card: gloo through "
+              f"host memory, contention, not scaling)")
+        check(rank["names"] == single["names"], f"model axis items, rank {r}")
+        check(rank["coords"] == (0, r) and rank["device"] == "cuda:0", f"model axis rank {r}")
+        check(rank["dtype"] == "torch.bfloat16", f"model axis rank {r}: not bfloat16")
+        check(counts == (want_fwd, want_bwd, want_bwd), f"model axis K2 launches, rank {r}")
+        check(rank["launches"][0] == 0, f"model axis K1 launches, rank {r}")
+        check(rank["edited"].shape == (F_DIFF_BATCH, DIFFUSION_SIZE, DIFFUSION_SIZE, 3) and
+              bool(np.isfinite(rank["edited"]).all()), f"model axis rows, rank {r}")
+        check(float(apart.mean()) <= F_DIFF_ATOL, f"model axis rows against one process, rank {r}")
+        check(rank["whole_bytes"] == single["bytes"] and share <= M_SHARD_SHARE,
+              f"model axis parameter bytes, rank {r}")
+    keys = ("edited", "orig_score", "adapted_score", "norms", "nto_embeds", "nto_adam_m",
+            "nto_adam_v", "out_latents")
+    equal = ranks[0]["steps"] == ranks[1]["steps"] and all(
+        np.array_equal(ranks[0][k], ranks[1][k]) for k in keys)
+    print(f"model axis edit: the two ranks' outputs, scores, guidance norms, null-text steps, "
+          f"embeddings and Adam moments bit-equal: {equal}; ranks {ranks_s:.1f} s")
+    check(equal, "model axis: the model ranks differ")
+
+    # (b) the midu step over (2, 2)
+    feats = rng.standard_normal((F_TRAIN_BATCH, 8, 8, 1280)).astype(np.float32)
+    labels = rng.uniform(0, 1, (F_TRAIN_BATCH, 2)).astype(np.float32)
+    t0 = time.perf_counter()
+    train = PAR.spawn_ranks(model_axis_train_rank, int(np.prod(M_TRAIN_MESH)), feats, labels,
+                            time.time(), backend="gloo", timeout=600)
+    train_s = time.perf_counter() - t0
+    train[0]["laps"]["to the ranks' exit"] = time.time() - max(r["end"] for r in train)
+    p_init, p_one, g_one, loss_one = one_process_midu_step(feats, labels, device)
+    first = train[0]
+    check([r["coords"] for r in train] == [(d, j) for d in range(M_TRAIN_MESH[0])
+                                          for j in range(M_TRAIN_MESH[1])], "model axis coords")
+    check(all(r["state"].keys() == first["state"].keys() and
+              all(np.array_equal(v, first["state"][k]) for k, v in r["state"].items())
+              for r in train), "model axis training: the ranks' state dicts differ")
+    check(len({r["loss"] for r in train}) == 1, "model axis training: the ranks' losses differ")
+    grads = []
+    for name, g in first["grads"].items():
+        if name in first["shards"]:
+            g = np.concatenate([r["grads"][name] for r in train[:M_TRAIN_MESH[1]]],
+                               axis=first["shards"][name][0])
+        grads.append(torch.from_numpy(g).flatten())
+    params = torch.cat([torch.from_numpy(v).flatten() for v in first["state"].values()])
+    print(f"model axis training: {len(train)} ranks at (data, model) {M_TRAIN_MESH}, "
+          f"{F_TRAIN_BATCH // M_TRAIN_MESH[0]} rows a data group, {len(first['shards'])} of "
+          f"{len(first['grads'])} parameters sharded; the gathered state dicts equal on all "
+          f"ranks; {train_s:.1f} s, of it in rank 0: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in first["laps"].items()))
+    check_midu_step("model axis midu step against one process on all rows", p_init, p_one,
+                    g_one, loss_one, params, torch.cat(grads), first["loss"])
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s (edit ranks {ranks_s:.1f} s, "
+          f"training ranks {train_s:.1f} s)")
+    return {"model_axis": tuple(sum(r["launches"][i] for r in ranks) for i in (1, 2, 3)),
+            "model_axis, one process": single["launches"][1:]}
 
 
 def main():
@@ -2423,6 +2741,9 @@ def main():
     rng_f = np.random.default_rng(22)
     diffusion_single = slice_f_diffusion_reference(edit_args, stack, work, rng_f, midu_path)
     torch.cuda.empty_cache()
+    # phase 23's one-process edit, on the same weights and images
+    model_axis_single = model_axis_reference(stack, work, midu_path)
+    torch.cuda.empty_cache()
     counts_cn = controlnet_phase(stack, rng, card)
     del stack
     torch.cuda.empty_cache()
@@ -2468,13 +2789,17 @@ def main():
 
     # ---- 22. slice F: two ranks on the card against one process, and NCCL
     counts_f = slice_f_phase(device, work, rng_f, card, midu_path, train_single, diffusion_single)
+    torch.cuda.empty_cache()
+
+    # ---- 23. the model axis: tensor parallelism over two and four ranks
+    counts_m = model_axis_phase(device, work, rng_f, card, midu_path, model_axis_single)
 
     paths = {"float32 edit": counts_f32, "bfloat16 edit": counts_bf16, "SDXL edit": counts_sdxl,
              "batched edit": counts_batch, "ControlNet": counts_cn,
              "SDXL midu training": counts_train, "run_img_trans": trans["launches"][1:],
              "EmoNet parametric edit": counts_emonet[1:],
              "process_result_images": counts_analysis[1:],
-             "eval report": counts_report[1:], **counts_f["k2"]}
+             "eval report": counts_report[1:], **counts_f["k2"], **counts_m}
     for i, entry in enumerate(k2_entries):
         entry["launches"] = sum(counts[i] for counts in paths.values())
         entry["launches_by_path"] = {name: counts[i] for name, counts in paths.items()}

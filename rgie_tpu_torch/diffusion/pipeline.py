@@ -41,6 +41,7 @@ from rgie_tpu_torch.diffusion.schedulers import DiffusionSchedule
 from rgie_tpu_torch.diffusion.unet import UNet2DCondition
 from rgie_tpu_torch.diffusion.vae import AutoencoderKL, decode_tiled, encode_tiled
 from rgie_tpu_torch.models.midu import ValenceArousalMidu
+from rgie_tpu_torch.parallel.model_axis import model_axis_of
 
 
 class SdxlCond(NamedTuple):
@@ -303,6 +304,7 @@ class InversionResamplingPipeline:
         use_sigma = self._use_sigma(self.sigma_sched)
         do_cfg = guidance_scale > 1.0
         do_clf = self.midu_model is not None and guidance_clf_scale > 0.0
+        model_axis = model_axis_of(self.unet)
         lat = latents
         b = lat.shape[0]
 
@@ -352,6 +354,8 @@ class InversionResamplingPipeline:
                     # The score sums over the images, so each image's
                     # gradient is its own.
                     (grad,) = torch.autograd.grad(clf.score(mid), lat_in)
+                if model_axis is not None:
+                    model_axis.mean_(grad)
                 norms = torch.linalg.vector_norm(grad, dim=tuple(range(1, grad.ndim)),
                                                  keepdim=True)
                 if log is not None:
@@ -399,7 +403,14 @@ class InversionResamplingPipeline:
         uncond embeddings: the mean squared distance between the CFG DDIM step
         from ``lat_cur`` and the inversion pivot ``lat_prev``, one loss per
         image (B,). Their sum is differentiated, so each image's embeddings
-        get the gradient of their own loss."""
+        get the gradient of their own loss.
+
+        Under a sharded UNet (``parallel.shard_model``) the ranks of its model
+        group take the largest of their losses and the mean of their
+        gradients, so that the early stop and the state it optimizes are the
+        same on every rank whatever order a backward summed in: a rank that
+        stopped alone would wait forever in a collective the others never
+        enter. The guidance gradient of ``sample_steps`` is averaged too."""
         with torch.enable_grad():
             u = uncond.detach().requires_grad_(True)
             eps_u, _ = self._unet(lat_cur, t, u, added_uncond)
@@ -407,7 +418,12 @@ class InversionResamplingPipeline:
             rec = SCH.ddim_step(self.sched, eps, t, lat_cur)
             loss = torch.mean((rec - lat_prev) ** 2, dim=tuple(range(1, rec.ndim)))
             (grad,) = torch.autograd.grad(loss.sum(), u)
-        return loss.detach(), grad
+        loss = loss.detach()
+        model_axis = model_axis_of(self.unet)
+        if model_axis is not None:
+            model_axis.max_(loss)
+            model_axis.mean_(grad)
+        return loss, grad
 
     @torch.no_grad()
     def null_optimization_steps(self, lat_cur: torch.Tensor, uncond: torch.Tensor,

@@ -117,6 +117,15 @@ class GroupNorm32(nn.GroupNorm):
         return y.to(x.dtype)
 
 
+class Float32Conv2d(nn.Conv2d):
+    """A convolution that runs in float32 whatever the type of its weights and
+    input (the output convolutions of the UNet and the VAE decoder)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x.float(), self.weight.float(), self.bias.float(), self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
 class ResnetBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, temb_dim: int, groups: int = 32):
         super().__init__()
@@ -341,7 +350,7 @@ class UNet2DCondition(nn.Module):
             self.up_blocks.append(_Block(resnets, attns, upsamplers=ups))
 
         self.conv_norm_out = GroupNorm32(g, ch0, eps=1e-5)
-        self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
+        self.conv_out = Float32Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -409,10 +418,8 @@ class UNet2DCondition(nn.Module):
             if hasattr(block, "upsamplers"):
                 x = block.upsamplers[0](x)
 
-        x = F.silu(self.conv_norm_out(x))
         # conv_out runs in float32 whatever the working type.
-        x = F.conv2d(x.float(), self.conv_out.weight.float(), self.conv_out.bias.float(),
-                     padding=1)
+        x = self.conv_out(F.silu(self.conv_norm_out(x)))
         return x.permute(0, 2, 3, 1), mid_features
 
 

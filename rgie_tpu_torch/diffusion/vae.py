@@ -23,7 +23,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from rgie_tpu_torch.diffusion.unet import GroupNorm32, _Block
+from rgie_tpu_torch.diffusion.unet import Float32Conv2d, GroupNorm32, _Block
 from rgie_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_self_attention_ok
 
 SD_SCALING = 0.18215
@@ -182,7 +182,7 @@ class Decoder(nn.Module):
             ups = [_VaeUpsample(ch)] if bi < len(chs) - 1 else None
             self.up_blocks.append(_Block(resnets, upsamplers=ups))
         self.conv_norm_out = GroupNorm32(g, chs[0], eps=1e-6)
-        self.conv_out = nn.Conv2d(chs[0], cfg.in_channels, 3, padding=1)
+        self.conv_out = Float32Conv2d(chs[0], cfg.in_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         x = self.conv_in(z)
@@ -192,10 +192,8 @@ class Decoder(nn.Module):
                 x = res(x)
             if hasattr(block, "upsamplers"):
                 x = block.upsamplers[0](x)
-        x = F.silu(self.conv_norm_out(x))
         # The image comes out in float32 whatever the working type.
-        return F.conv2d(x.float(), self.conv_out.weight.float(), self.conv_out.bias.float(),
-                        padding=1)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))
 
 
 class AutoencoderKL(nn.Module):

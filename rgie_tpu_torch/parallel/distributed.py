@@ -21,6 +21,10 @@ card, and nothing here swaps in the CPU. With an explicit ``gloo`` group,
 ranks may share a card (``cuda:LOCAL_RANK % cards``): gloo takes CUDA tensors
 for its all-reduce and broadcast and stages them through host memory.
 
+``parallel/mesh.py`` lays the processes out over (data, model); the model
+axis stays on one host (``LOCAL_WORLD_SIZE``, torchrun's count of this host's
+processes, or every process when it is not set).
+
 One process per device means each rank simply keeps its own rows: JAX's
 ``global_from_local`` and ``local_rows``, which assemble one global array
 over a mesh and take a process's rows back out of it, have no counterpart.
@@ -162,10 +166,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_main(fn, rank, world_size, port, backend, results, args):
+def _rank_main(fn, rank, world_size, port, backend, results, inputs):
     os.environ.update(RANK=str(rank), WORLD_SIZE=str(world_size), LOCAL_RANK=str(rank),
-                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+                      LOCAL_WORLD_SIZE=str(world_size), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
     try:
+        args = inputs.get()
         init_distributed(f"127.0.0.1:{port}", world_size, rank, backend=backend)
         results.put((rank, True, fn(*args)))
     except BaseException:
@@ -187,13 +193,21 @@ def spawn_ranks(fn: Callable, world_size: int, *args: Any, backend: str = "gloo"
     import queue as queue_mod
 
     ctx = mp.get_context("spawn")
-    results = ctx.Queue()
+    results, inputs = ctx.Queue(), ctx.Queue()
+    # The arguments go through a queue, not the process objects: a child
+    # reads its process object only after importing the main module, and the
+    # parent's start blocks until a large one is read, which would start the
+    # ranks one after another. (A rank that dies before reading them must not
+    # keep this process waiting to flush them at its exit.)
+    inputs.cancel_join_thread()
     port = _free_port()
     procs = [ctx.Process(target=_rank_main, args=(fn, rank, world_size, port, backend, results,
-                                                   args), daemon=True)
+                                                   inputs), daemon=True)
              for rank in range(world_size)]
     for p in procs:
         p.start()
+    for _ in procs:
+        inputs.put(args)
     done, failure = {}, None
     deadline = time.monotonic() + timeout
     try:

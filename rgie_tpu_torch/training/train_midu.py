@@ -6,21 +6,22 @@ L2 weight decay 5e-5, MSE on teacher VA labels, noisy latents at random
 timesteps, best-validation checkpointing. The features (the frozen UNet's
 mid block at the noisy latents) come from ``cli/train_guidance_clf.py``; the
 step here trains the midu on them. The JAX package jits the step over a
-(data, model) mesh (``shard_train_step``); the port runs it on one device
-until slice F brings data parallelism.
+(data, model) mesh (``shard_train_step``); the port runs it over processes
+on the same two axes (``parallel.create_mesh``, ``parallel.shard_model``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Tuple
+from typing import Iterable, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 
 from rgie_tpu_torch.config import TrainGuidanceConfig
-from rgie_tpu_torch.parallel.mesh import all_mean
+from rgie_tpu_torch.parallel.mesh import Mesh, all_mean, create_mesh
+from rgie_tpu_torch.parallel.model_axis import model_shards
 
 
 @dataclasses.dataclass
@@ -49,11 +50,12 @@ def _mse(out: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean((out - labels) ** 2)
 
 
-def make_train_step(average_gradients: bool = False):
+def make_train_step(average_gradients: bool = False, mesh: Optional[Mesh] = None):
     """``train_step(state, features, labels) -> (state, loss, predictions)``:
     one Adam step on the MSE to the labels. With ``average_gradients`` the
     gradients and the loss are averaged over the processes before the step
-    (``shard_train_step``)."""
+    (``shard_train_step``; over ``mesh``, by default every process on the
+    data axis)."""
 
     def train_step(state: TrainState, features: torch.Tensor, labels: torch.Tensor):
         state.optimizer.zero_grad(set_to_none=True)
@@ -63,7 +65,7 @@ def make_train_step(average_gradients: bool = False):
             loss.backward()
         loss = loss.detach()
         if average_gradients:
-            loss = _all_mean_gradients(state.model, loss)
+            loss = _all_mean_gradients(state.model, loss, mesh or create_mesh())
         state.optimizer.step()
         state.step += 1
         return state, loss, out.detach()
@@ -71,32 +73,54 @@ def make_train_step(average_gradients: bool = False):
     return train_step
 
 
-def _all_mean_gradients(model: nn.Module, loss: torch.Tensor) -> torch.Tensor:
-    """Every gradient of ``model`` and ``loss`` replaced by their mean over the
-    processes, in one all-reduce of them all flattened; returns the mean
+def _flat_mean_(tensors, group=None) -> None:
+    """Each of ``tensors`` replaced, in place, by its mean over ``group``, in
+    one all-reduce of them all flattened."""
+    if tensors:
+        flat = all_mean(torch.cat([t.reshape(-1) for t in tensors]), group)
+        offset = 0
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
+
+
+def _all_mean_gradients(model: nn.Module, loss: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every gradient of ``model`` replaced by its mean over the ranks that
+    hold the same parameter: a sharded one's over its data group, a
+    replicated one's (with the loss) over every process. Returns the mean
     loss."""
-    grads = [p.grad for p in model.parameters() if p.grad is not None]
-    flat = all_mean(torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1).to(grads[0])]))
-    offset = 0
-    for g in grads:
-        g.copy_(flat[offset:offset + g.numel()].view_as(g))
-        offset += g.numel()
-    return flat[-1].to(loss.dtype)
+    sharded = model_shards(model)
+    named = [(n, p.grad) for n, p in model.named_parameters() if p.grad is not None]
+    mean_loss = loss.reshape(1).to(named[0][1])
+    _flat_mean_([g for n, g in named if n in sharded], mesh.data_group())
+    _flat_mean_([g for n, g in named if n not in sharded] + [mean_loss])
+    return mean_loss[0].to(loss.dtype)
 
 
-def shard_train_step(state: TrainState):
-    """The DDP counterpart of JAX's ``shard_train_step``: every rank starts
-    from rank 0's midu (a broadcast of its parameters), and the step averages
-    the gradients over the processes before Adam, so its update equals a
-    one-process step on the union of the ranks' rows and every rank keeps
-    the same midu. Returns ``(train_step, state)``; one process gets the
-    plain step."""
+def shard_train_step(state: TrainState, mesh: Optional[Mesh] = None):
+    """The counterpart of JAX's ``shard_train_step`` over ``mesh`` (default:
+    every process on the data axis): the batch is split over the data axis,
+    each rank passing its own rows, and a midu put through
+    ``parallel.shard_model`` over the model axis keeps its weight slices.
+    Every rank starts from the same midu (a replicated parameter broadcast
+    from rank 0, a sharded slice from the first rank of its data group), and
+    the step averages each gradient over the ranks that hold its parameter
+    before Adam, so the update equals a one-process step on the union of the
+    data groups' rows and the ranks of a data group keep the same weights.
+    Returns ``(train_step, state)``; one process gets the plain step."""
     if not dist.is_initialized():
         return make_train_step(), state
+    mesh = mesh or create_mesh()
+    sharded = model_shards(state.model)
+    data_group = mesh.data_group()
+    first = int(dist.get_global_rank(data_group, 0)) if data_group is not None else 0
     with torch.no_grad():
-        for p in state.model.parameters():
-            dist.broadcast(p, src=0)
-    return make_train_step(average_gradients=True), state
+        for name, p in state.model.named_parameters():
+            if name in sharded:
+                dist.broadcast(p, src=first, group=data_group)
+            else:
+                dist.broadcast(p, src=0)
+    return make_train_step(average_gradients=True, mesh=mesh), state
 
 
 def make_eval_step():

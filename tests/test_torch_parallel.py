@@ -4,7 +4,9 @@ the DDP midu step).
 
 Unit checks: a single process is a no-op, the JAX package's ``RGIE_*``
 launch variables map onto torch's, ``ShardedView`` and ``pad_to_multiple``
-equal JAX's, a model axis above 1 raises, NCCL refuses two ranks on a card.
+equal JAX's, a model axis divides the processes of a host (the model axis
+itself: ``tests/test_torch_model_axis.py``), NCCL refuses two ranks on a
+card.
 
 Then one module-scoped run of two ``gloo`` processes on the CPU (the
 counterpart of ``__graft_entry__.dryrun_multichip``), each running, in one
@@ -47,8 +49,8 @@ STEP_RTOL = 1e-4
 # count.
 MIDU_IN, MIDU_LR, MIDU_WD = 16, 1e-3, 0.5
 VA_SIZE, VA_CROP = 64, 56
-LAUNCH_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
-               "RGIE_COORDINATOR", "RGIE_NUM_PROCESSES", "RGIE_PROCESS_ID")
+LAUNCH_VARS = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR",
+               "MASTER_PORT", "RGIE_COORDINATOR", "RGIE_NUM_PROCESSES", "RGIE_PROCESS_ID")
 
 
 @pytest.fixture
@@ -130,17 +132,19 @@ def test_pad_to_multiple_matches_jax():
         assert n == n_j == 5 and np.array_equal(got, expect)
 
 
-def test_a_model_axis_above_one_raises(no_launch):
+def test_a_model_axis_divides_the_processes_of_a_host(no_launch):
     no_launch.setenv("WORLD_SIZE", "4")
     assert PAR.create_mesh() == PAR.Mesh(4, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        PAR.create_mesh((2, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        PAR.create_hybrid_mesh(model_parallel=2)
+    assert PAR.create_mesh((2, 2)) == PAR.create_hybrid_mesh(model_parallel=2) == PAR.Mesh(2, 2)
+    assert PAR.create_mesh((1, 4)).shape == {PAR.DATA_AXIS: 1, PAR.MODEL_AXIS: 4}
     with pytest.raises(ValueError, match="!= 4 processes"):
         PAR.create_mesh((3, 1))
     with pytest.raises(ValueError, match="model_parallel 3"):
         PAR.create_hybrid_mesh(model_parallel=3)
+    no_launch.setenv("LOCAL_WORLD_SIZE", "2")
+    assert PAR.create_hybrid_mesh(model_parallel=2) == PAR.Mesh(2, 2)
+    with pytest.raises(ValueError, match="must divide LOCAL_WORLD_SIZE 2"):
+        PAR.create_mesh((1, 4))
 
 
 def test_nccl_refuses_a_rank_without_a_card_of_its_own(monkeypatch):
