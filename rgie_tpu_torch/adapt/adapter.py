@@ -95,16 +95,16 @@ class ImageAdapter:
         end_it = end_iteration if end_iteration is not None else s
         start_iteration = 0 if s != pipe.sched.num_inference_steps else s - end_it
 
-        # Null-text inversion uses empty prompts (pipeline.py:83-84).
-        empty = self.embeds_fn("", "")
-        added_empty = None
-        if pipe.is_xl and self.added_cond_fn is not None:
-            added_empty = cond_row(self.added_cond_fn("", ""), 1)
-        latents = pipe.encode_image(image)
-        clock.lap("encode")
-        noisy, pivots = pipe.reverse_sample(latents, empty, added=added_empty,
-                                            end_iteration=end_it)
-        clock.lap("invert")
+        with clock.phase("encode"):
+            # Null-text inversion uses empty prompts (pipeline.py:83-84).
+            empty = self.embeds_fn("", "")
+            added_empty = None
+            if pipe.is_xl and self.added_cond_fn is not None:
+                added_empty = cond_row(self.added_cond_fn("", ""), 1)
+            latents = pipe.encode_image(image)
+        with clock.phase("invert"):
+            noisy, pivots = pipe.reverse_sample(latents, empty, added=added_empty,
+                                                end_iteration=end_it)
         log.tensors.update(latents=latents, noisy=noisy)
 
         outputs: Dict[str, torch.Tensor] = {}
@@ -114,39 +114,39 @@ class ImageAdapter:
             prompt = cfg.prompt if not cfg.use_caption else (caption + " " + cfg.prompt)
             if cfg.is_nto and nto_scale != cfg.cfg_scale:
                 nto_scale = cfg.cfg_scale
-                cond = self.embeds_fn(caption, "")
-                uncond = self.embeds_fn("", "")
-                nto_added_c, nto_added_u = None, None
-                if pipe.is_xl and self.added_cond_fn is not None:
-                    both = self.added_cond_fn(caption, "")
-                    nto_added_u, nto_added_c = cond_row(both, 0), cond_row(both, 1)
-                clock.lap("prompts")
-                nto_embeds = pipe.null_optimization(
-                    pivots, cond, uncond, added_cond=nto_added_c, added_uncond=nto_added_u,
-                    guidance_scale=cfg.cfg_scale, log=log)
-                clock.lap("nto")
+                with clock.phase("prompts"):
+                    cond = self.embeds_fn(caption, "")
+                    uncond = self.embeds_fn("", "")
+                    nto_added_c, nto_added_u = None, None
+                    if pipe.is_xl and self.added_cond_fn is not None:
+                        both = self.added_cond_fn(caption, "")
+                        nto_added_u, nto_added_c = cond_row(both, 0), cond_row(both, 1)
+                with clock.phase("nto"):
+                    nto_embeds = pipe.null_optimization(
+                        pivots, cond, uncond, added_cond=nto_added_c, added_uncond=nto_added_u,
+                        guidance_scale=cfg.cfg_scale, log=log)
                 log.tensors["nto_embeds"] = nto_embeds
             elif not cfg.is_nto:
                 nto_embeds = None
                 nto_scale = -1.0
 
-            embeds = self.cfg_embeds_fn(prompt, cfg.negative_prompt)
-            added = None
-            if pipe.is_xl and self.added_cond_fn is not None:
-                added = self.added_cond_fn(prompt, cfg.negative_prompt)
-            clock.lap("prompts")
-            out_lat = pipe.sample(
-                noisy, embeds, added=added, guidance_scale=cfg.cfg_scale,
-                guidance_clf_scale=cfg.clf_scale, uncond_embeds_per_step=nto_embeds,
-                start_iteration=start_iteration, midu_is_minimized=not cfg.max,
-                midu_reference_value=reference_value, log=log)
-            clock.lap("sample")
-            img = pipe.decode_latents(out_lat)
-            clock.lap("decode")
+            with clock.phase("prompts"):
+                embeds = self.cfg_embeds_fn(prompt, cfg.negative_prompt)
+                added = None
+                if pipe.is_xl and self.added_cond_fn is not None:
+                    added = self.added_cond_fn(prompt, cfg.negative_prompt)
+            with clock.phase("sample"):
+                out_lat = pipe.sample(
+                    noisy, embeds, added=added, guidance_scale=cfg.cfg_scale,
+                    guidance_clf_scale=cfg.clf_scale, uncond_embeds_per_step=nto_embeds,
+                    start_iteration=start_iteration, midu_is_minimized=not cfg.max,
+                    midu_reference_value=reference_value, log=log)
+            with clock.phase("decode"):
+                img = pipe.decode_latents(out_lat)
             log.tensors["out_latents"] = out_lat
             outputs[key] = img
             if callback_outputs is not None:
-                callback_outputs(img, key)
-                clock.lap("save_and_rescore")
+                with clock.phase("save_and_rescore"):
+                    callback_outputs(img, key)
         return outputs
 

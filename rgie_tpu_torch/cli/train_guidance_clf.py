@@ -53,6 +53,7 @@ from rgie_tpu_torch.diffusion.unet import UNet2DCondition, UNetConfig
 from rgie_tpu_torch.diffusion.vae import AutoencoderKL, VaeConfig
 from rgie_tpu_torch.training.clf_wrapper import ClfWrapper
 from rgie_tpu_torch.training.train_midu import get_noisy_latents
+from rgie_tpu_torch.utils.spans import span
 
 #: (UNet config, VAE config, default image size, teacher regressor sizes).
 SCALES = {
@@ -165,17 +166,21 @@ def features_and_labels(stack: TrainStack, generator: torch.Generator, images: t
     ``images`` (B, H, W, 3) in [0, 1], both float32; the teacher reads the
     images in float32; the timesteps and the noise are drawn from
     ``generator`` (JAX CLI: features_and_labels)."""
-    labels = stack.teacher.get_label(images.float())
-    latents = stack.vae.encode(images * 2 - 1).float()
-    noisy, t = get_noisy_latents(generator, latents, stack.sched.alphas_cumprod,
-                                 stack.sched.num_train_timesteps)
-    b = noisy.shape[0]
-    kwargs = {}
-    if stack.added_text is not None:
-        kwargs = dict(added_text_embeds=stack.added_text.expand(b, -1),
-                      added_time_ids=stack.added_time.expand(b, -1))
-    _, mid = stack.unet(noisy, t, stack.context.expand(b, -1, -1), **kwargs)
-    return mid.float(), labels
+    with span("train.features"):
+        with span("train.teacher"):
+            labels = stack.teacher.get_label(images.float())
+        with span("train.encode"):
+            latents = stack.vae.encode(images * 2 - 1).float()
+            noisy, t = get_noisy_latents(generator, latents, stack.sched.alphas_cumprod,
+                                         stack.sched.num_train_timesteps)
+        with span("train.unet"):
+            b = noisy.shape[0]
+            kwargs = {}
+            if stack.added_text is not None:
+                kwargs = dict(added_text_embeds=stack.added_text.expand(b, -1),
+                              added_time_ids=stack.added_time.expand(b, -1))
+            _, mid = stack.unet(noisy, t, stack.context.expand(b, -1, -1), **kwargs)
+            return mid.float(), labels
 
 
 def image_batches(args, image_size: int, generator: torch.Generator, n_batches: int,

@@ -121,70 +121,71 @@ def edit_program(pipe: InversionResamplingPipeline, *, chunk_steps: Optional[int
         b = images.shape[0]
         check_batch(pipe, b)
         log = log if log is not None else RunLog()
-        clock = PhaseClock(pipe.device, log)
         empty = empty_embeds.expand(b, -1, -1)
         added_e = None
         if added_empty is not None:
             added_e = SdxlCond(*(x.expand(b, -1) for x in added_empty))
 
-        orig = pipe.score(images, empty_embeds, added_empty)
-        reference_value = torch.clamp(orig + alpha, 0.0, 1.0) if use_reference else None
-        clock.lap("score")
-        latents = pipe.encode_image(images)
-        clock.lap("encode")
+        clock = PhaseClock(pipe.device, log)
+        with clock.phase("score"):
+            orig = pipe.score(images, empty_embeds, added_empty)
+            reference_value = torch.clamp(orig + alpha, 0.0, 1.0) if use_reference else None
+        with clock.phase("encode"):
+            latents = pipe.encode_image(images)
 
         # Inversion; pivots[0] is the clean latent, as in reverse_sample.
-        ts, src_ts, i_vals = pipe.invert_tables(end_it)
-        lat = latents
-        state = SCH.dpm_init_state(lat.shape, lat.dtype, lat.device)
-        parts = [latents[None]]
-        for a, z in _windows(len(ts), chunk_steps):
-            lat, state, pivots = pipe.invert_steps(lat, state, empty, added_e, ts[a:z],
-                                                   src_ts[a:z], i_vals[a:z])
-            parts.append(pivots)
-        pivots = torch.cat(parts)                 # (K+1, B, h, w, c)
-        noisy = lat
-        clock.lap("invert")
+        with clock.phase("invert"):
+            ts, src_ts, i_vals = pipe.invert_tables(end_it)
+            lat = latents
+            state = SCH.dpm_init_state(lat.shape, lat.dtype, lat.device)
+            parts = [latents[None]]
+            for a, z in _windows(len(ts), chunk_steps):
+                lat, state, pivots = pipe.invert_steps(lat, state, empty, added_e, ts[a:z],
+                                                       src_ts[a:z], i_vals[a:z])
+                parts.append(pivots)
+            pivots = torch.cat(parts)                 # (K+1, B, h, w, c)
+            noisy = lat
         log.tensors.update(latents=latents, noisy=noisy)
 
         nto_embeds = None
         if use_nto:
-            idx = torch.clamp(s - 1 - torch.arange(s), 0, pivots.shape[0] - 1)
-            pivots_rev = pivots[idx.to(pivots.device)]
-            lat_cur, uncond = pivots[-1], empty
-            parts = []
-            for a, z in _windows(s, chunk_steps):
-                lat_cur, uncond, part = pipe.null_optimization_steps(
-                    lat_cur, uncond, pivots_rev[a:z], conds.cond_embeds[:, 0],
-                    torch.arange(a, z), guidance_scale, added_cond=_rows(conds.added_cond, 0),
-                    added_uncond=_rows(conds.added_uncond, 0), num_inner_steps=num_inner_steps,
-                    epsilon=nto_epsilon, log=log)
-                parts.append(part)
-            nto_embeds = torch.cat(parts)         # (S, B, L, D)
-            clock.lap("nto")
+            with clock.phase("nto"):
+                idx = torch.clamp(s - 1 - torch.arange(s), 0, pivots.shape[0] - 1)
+                pivots_rev = pivots[idx.to(pivots.device)]
+                lat_cur, uncond = pivots[-1], empty
+                parts = []
+                for a, z in _windows(s, chunk_steps):
+                    lat_cur, uncond, part = pipe.null_optimization_steps(
+                        lat_cur, uncond, pivots_rev[a:z], conds.cond_embeds[:, 0],
+                        torch.arange(a, z), guidance_scale,
+                        added_cond=_rows(conds.added_cond, 0),
+                        added_uncond=_rows(conds.added_uncond, 0),
+                        num_inner_steps=num_inner_steps, epsilon=nto_epsilon, log=log)
+                    parts.append(part)
+                nto_embeds = torch.cat(parts)         # (S, B, L, D)
             log.tensors["nto_embeds"] = nto_embeds
 
-        if guidance_scale > 1.0:
-            prompt = torch.cat([conds.cfg_embeds[:, 0], conds.cfg_embeds[:, 1]])
-        else:
-            prompt = conds.cfg_embeds[:, 1]
-        added_cfg = _pair(conds.added_cfg)
-        ts, next_ts, i_vals = pipe.sample_tables(start_iteration)
-        lat = noisy
-        state = SCH.dpm_init_state(lat.shape, lat.dtype, lat.device)
-        for a, z in _windows(len(ts), chunk_steps):
-            lat, state = pipe.sample_steps(
-                lat, state, prompt, added_cfg, ts[a:z], next_ts[a:z], i_vals[a:z],
-                guidance_scale=guidance_scale, guidance_clf_scale=guidance_clf_scale,
-                guidance_rescale=guidance_rescale, uncond_embeds_per_step=nto_embeds,
-                midu_is_minimized=midu_is_minimized, midu_reference_value=reference_value,
-                log=log)
-        clock.lap("sample")
+        with clock.phase("sample"):
+            if guidance_scale > 1.0:
+                prompt = torch.cat([conds.cfg_embeds[:, 0], conds.cfg_embeds[:, 1]])
+            else:
+                prompt = conds.cfg_embeds[:, 1]
+            added_cfg = _pair(conds.added_cfg)
+            ts, next_ts, i_vals = pipe.sample_tables(start_iteration)
+            lat = noisy
+            state = SCH.dpm_init_state(lat.shape, lat.dtype, lat.device)
+            for a, z in _windows(len(ts), chunk_steps):
+                lat, state = pipe.sample_steps(
+                    lat, state, prompt, added_cfg, ts[a:z], next_ts[a:z], i_vals[a:z],
+                    guidance_scale=guidance_scale, guidance_clf_scale=guidance_clf_scale,
+                    guidance_rescale=guidance_rescale, uncond_embeds_per_step=nto_embeds,
+                    midu_is_minimized=midu_is_minimized, midu_reference_value=reference_value,
+                    log=log)
         log.tensors["out_latents"] = lat
-        edited = pipe.decode_latents(lat)
-        clock.lap("decode")
-        adapted = pipe.score(edited, empty_embeds, added_empty)
-        clock.lap("rescore")
+        with clock.phase("decode"):
+            edited = pipe.decode_latents(lat)
+        with clock.phase("rescore"):
+            adapted = pipe.score(edited, empty_embeds, added_empty)
         return BatchedEditOutputs(edited=edited, orig_score=orig, adapted_score=adapted)
 
     return program

@@ -27,10 +27,11 @@ places where a gradient is taken.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -42,6 +43,7 @@ from rgie_tpu_torch.diffusion.unet import UNet2DCondition
 from rgie_tpu_torch.diffusion.vae import AutoencoderKL, decode_tiled, encode_tiled
 from rgie_tpu_torch.models.midu import ValenceArousalMidu
 from rgie_tpu_torch.parallel.model_axis import model_axis_of
+from rgie_tpu_torch.utils.spans import span
 
 
 class SdxlCond(NamedTuple):
@@ -69,8 +71,11 @@ class RunLog:
 
 
 class PhaseClock:
-    """Adds the seconds since the previous lap to ``log.seconds[name]``, after
-    waiting for the device so that a phase is charged its own work."""
+    """Times an edit's phases: ``phase(name)`` runs its block inside the
+    profiler range ``edit.<name>`` (``utils.spans``) and adds the seconds
+    since the previous phase ended to ``log.seconds[name]``, after waiting
+    for the device, so that a phase is charged its own work and that work
+    lies inside its range."""
 
     def __init__(self, device: torch.device, log: RunLog):
         self.device, self.log = device, log
@@ -81,8 +86,11 @@ class PhaseClock:
             torch.cuda.synchronize(self.device)
         return time.perf_counter()
 
-    def lap(self, name: str) -> None:
-        now = self._now()
+    @contextlib.contextmanager
+    def phase(self, name: str) -> Iterator[None]:
+        with span("edit.%s", name):
+            yield
+            now = self._now()
         self.log.seconds[name] = self.log.seconds.get(name, 0.0) + now - self.last
         self.last = now
 
@@ -320,49 +328,55 @@ class InversionResamplingPipeline:
                                      reference_value=midu_reference_value)
 
         for t, t_next, i in zip(ts.tolist(), next_ts.tolist(), i_vals.tolist()):
-            if do_cfg:
-                embeds = prompt_embeds
-                if uncond_embeds_per_step is not None:
-                    embeds = torch.cat([_step_rows(uncond_embeds_per_step, i), embeds[b:]], dim=0)
-                eps_pair, _ = self._unet(torch.cat([lat, lat], dim=0), t, embeds, added)
-                eps_u, eps_c = eps_pair.chunk(2, dim=0)
-                eps = eps_u + guidance_scale * (eps_c - eps_u)
-                if guidance_rescale > 0.0:
-                    eps = rescale_noise_cfg(eps, eps_c, guidance_rescale)
-            else:
-                added_cond = None
-                if added is not None:
-                    added_cond = SdxlCond(added.text_embeds[-b:], added.time_ids[-b:])
-                eps, _ = self._unet(lat, t, prompt_embeds, added_cond)
+            with span("sample.step"):
+                with span("sample.cfg"):
+                    if do_cfg:
+                        embeds = prompt_embeds
+                        if uncond_embeds_per_step is not None:
+                            embeds = torch.cat([_step_rows(uncond_embeds_per_step, i),
+                                                embeds[b:]], dim=0)
+                        eps_pair, _ = self._unet(torch.cat([lat, lat], dim=0), t, embeds, added)
+                        eps_u, eps_c = eps_pair.chunk(2, dim=0)
+                        eps = eps_u + guidance_scale * (eps_c - eps_u)
+                        if guidance_rescale > 0.0:
+                            eps = rescale_noise_cfg(eps, eps_c, guidance_rescale)
+                    else:
+                        added_cond = None
+                        if added is not None:
+                            added_cond = SdxlCond(added.text_embeds[-b:], added.time_ids[-b:])
+                        eps, _ = self._unet(lat, t, prompt_embeds, added_cond)
 
-            if use_sigma:
-                lat, dpm_state = SCH.dpm_sigma_step(self.sigma_sched, eps, i, lat, dpm_state)
-            elif self.scheduler_type == "dpm":
-                lat, dpm_state = SCH.dpm_step(self.sched, eps, t, t_next, lat, dpm_state)
-            else:
-                lat = SCH.ddim_step(self.sched, eps, t, lat)
+                with span("sample.sched"):
+                    if use_sigma:
+                        lat, dpm_state = SCH.dpm_sigma_step(self.sigma_sched, eps, i, lat,
+                                                            dpm_state)
+                    elif self.scheduler_type == "dpm":
+                        lat, dpm_state = SCH.dpm_step(self.sched, eps, t, t_next, lat, dpm_state)
+                    else:
+                        lat = SCH.ddim_step(self.sched, eps, t, lat)
 
-            if do_clf:
-                # Classifier guidance on the POST-step latents, gradient
-                # normalized (reference :126-142). Uncond row of the embeds.
-                uncond = prompt_embeds[:b] if do_cfg else prompt_embeds
-                if uncond_embeds_per_step is not None and do_cfg:
-                    uncond = _step_rows(uncond_embeds_per_step, i)
-                with torch.enable_grad():
-                    lat_in = lat.detach().requires_grad_(True)
-                    _, mid = self._unet(lat_in, t, uncond, added_uncond)
-                    # The score sums over the images, so each image's
-                    # gradient is its own.
-                    (grad,) = torch.autograd.grad(clf.score(mid), lat_in)
-                if model_axis is not None:
-                    model_axis.mean_(grad)
-                norms = torch.linalg.vector_norm(grad, dim=tuple(range(1, grad.ndim)),
-                                                 keepdim=True)
-                if log is not None:
-                    log.clf_grad_norms.append(norms.reshape(b))
-                if self.normalize_gradient:
-                    grad = grad / (norms + 1e-10)
-                lat = lat - guidance_clf_scale * grad
+                if do_clf:
+                    with span("sample.guidance"):
+                        # Classifier guidance on the POST-step latents, gradient
+                        # normalized (reference :126-142). Uncond row of the embeds.
+                        uncond = prompt_embeds[:b] if do_cfg else prompt_embeds
+                        if uncond_embeds_per_step is not None and do_cfg:
+                            uncond = _step_rows(uncond_embeds_per_step, i)
+                        with torch.enable_grad():
+                            lat_in = lat.detach().requires_grad_(True)
+                            _, mid = self._unet(lat_in, t, uncond, added_uncond)
+                            # The score sums over the images, so each image's
+                            # gradient is its own.
+                            (grad,) = torch.autograd.grad(clf.score(mid), lat_in)
+                        if model_axis is not None:
+                            model_axis.mean_(grad)
+                        norms = torch.linalg.vector_norm(grad, dim=tuple(range(1, grad.ndim)),
+                                                         keepdim=True)
+                        if log is not None:
+                            log.clf_grad_norms.append(norms.reshape(b))
+                        if self.normalize_gradient:
+                            grad = grad / (norms + 1e-10)
+                        lat = lat - guidance_clf_scale * grad
         return lat, dpm_state
 
     # -- null-text optimization ----------------------------------------------
@@ -456,56 +470,65 @@ class InversionResamplingPipeline:
 
         uncond_list = []
         for k, i in enumerate(i_vals.tolist()):
-            t, lat_prev = ts[i], pivots_rev[k]
-            eps_cond, _ = self._unet(lat_cur, t, cond_embeds, added_cond)
-            lr = base_lr * (1.0 - i / 100.0)
-            thresh = epsilon + i * 2e-5
+            with span("nto.outer"):
+                t, lat_prev = ts[i], pivots_rev[k]
+                with span("nto.cond"):
+                    eps_cond, _ = self._unet(lat_cur, t, cond_embeds, added_cond)
+                lr = base_lr * (1.0 - i / 100.0)
+                thresh = epsilon + i * 2e-5
 
-            # The reference's hand-written Adam with the early stop: an image
-            # runs while the loss of its PREVIOUS evaluation is at or above
-            # the threshold, starting from infinity.
-            u = uncond
-            m, v = torch.zeros_like(u), torch.zeros_like(u)
-            running = [True] * u.shape[0]
-            image_steps = [0] * u.shape[0]
-            j = 0
-            while j < num_inner_steps and any(running):
-                loss_t, g = self.null_inner_loss_and_grad(u, lat_cur, t, eps_cond, lat_prev,
-                                                          guidance_scale, added_uncond)
-                m_new = b1 * m + (1 - b1) * g
-                v_new = b2 * v + (1 - b2) * g * g
-                mh = m_new / -math.expm1((j + 1) * math.log(b1))
-                vh = v_new / -math.expm1((j + 1) * math.log(b2))
-                u_new = u - lr * mh / (torch.sqrt(vh) + adam_eps)
-                if all(running):
-                    u, m, v = u_new, m_new, v_new
-                else:
-                    keep = torch.tensor(running, device=u.device).view(-1, *[1] * (u.ndim - 1))
-                    u, m, v = (torch.where(keep, new, old) for new, old in
-                               ((u_new, u), (m_new, m), (v_new, v)))
-                j += 1
-                for row, loss in enumerate(loss_t.tolist()):
-                    if running[row]:
-                        image_steps[row] = j
-                        running[row] = loss >= thresh
-            if log is not None:
-                log.nto_inner_steps.append(j)
-                log.nto_image_steps.append(image_steps)
-                log.tensors.update(nto_adam_m=m, nto_adam_v=v)
-            uncond = u
+                # The reference's hand-written Adam with the early stop: an
+                # image runs while the loss of its PREVIOUS evaluation is at
+                # or above the threshold, starting from infinity.
+                u = uncond
+                m, v = torch.zeros_like(u), torch.zeros_like(u)
+                running = [True] * u.shape[0]
+                image_steps = [0] * u.shape[0]
+                j = 0
+                while j < num_inner_steps and any(running):
+                    with span("nto.inner"):
+                        with span("nto.loss_grad"):
+                            loss_t, g = self.null_inner_loss_and_grad(
+                                u, lat_cur, t, eps_cond, lat_prev, guidance_scale, added_uncond)
+                        with span("nto.adam"):
+                            m_new = b1 * m + (1 - b1) * g
+                            v_new = b2 * v + (1 - b2) * g * g
+                            mh = m_new / -math.expm1((j + 1) * math.log(b1))
+                            vh = v_new / -math.expm1((j + 1) * math.log(b2))
+                            u_new = u - lr * mh / (torch.sqrt(vh) + adam_eps)
+                            if all(running):
+                                u, m, v = u_new, m_new, v_new
+                            else:
+                                keep = torch.tensor(running, device=u.device).view(
+                                    -1, *[1] * (u.ndim - 1))
+                                u, m, v = (torch.where(keep, new, old) for new, old in
+                                           ((u_new, u), (m_new, m), (v_new, v)))
+                        j += 1
+                        with span("nto.readback"):
+                            losses = loss_t.tolist()
+                        for row, loss in enumerate(losses):
+                            if running[row]:
+                                image_steps[row] = j
+                                running[row] = loss >= thresh
+                if log is not None:
+                    log.nto_inner_steps.append(j)
+                    log.nto_image_steps.append(image_steps)
+                    log.tensors.update(nto_adam_m=m, nto_adam_v=v)
+                uncond = u
 
-            # Final CFG step with the optimized embeddings (reference :209-216).
-            added = None
-            if self.is_xl and added_cond is not None:
-                added = SdxlCond(
-                    torch.cat([added_uncond.text_embeds, added_cond.text_embeds], dim=0),
-                    torch.cat([added_uncond.time_ids, added_cond.time_ids], dim=0))
-            eps_pair, _ = self._unet(torch.cat([lat_cur, lat_cur], dim=0), t,
-                                     torch.cat([uncond, cond_embeds], dim=0), added)
-            eps_u, eps_c = eps_pair.chunk(2, dim=0)
-            eps = eps_u + guidance_scale * (eps_c - eps_u)
-            lat_cur = SCH.ddim_step(self.sched, eps, t, lat_cur)
-            uncond_list.append(uncond)
+                # Final CFG step with the optimized embeddings (reference :209-216).
+                with span("nto.cfg_step"):
+                    added = None
+                    if self.is_xl and added_cond is not None:
+                        added = SdxlCond(
+                            torch.cat([added_uncond.text_embeds, added_cond.text_embeds], dim=0),
+                            torch.cat([added_uncond.time_ids, added_cond.time_ids], dim=0))
+                    eps_pair, _ = self._unet(torch.cat([lat_cur, lat_cur], dim=0), t,
+                                             torch.cat([uncond, cond_embeds], dim=0), added)
+                    eps_u, eps_c = eps_pair.chunk(2, dim=0)
+                    eps = eps_u + guidance_scale * (eps_c - eps_u)
+                    lat_cur = SCH.ddim_step(self.sched, eps, t, lat_cur)
+                uncond_list.append(uncond)
         return lat_cur, uncond, torch.stack(uncond_list)
 
 

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from rgie_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_self_attention_ok
+from rgie_tpu_torch.utils.spans import attention_span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,17 +164,22 @@ class CrossAttention(nn.Module):
         q = self.to_q(x).view(b, n, self.heads, self.dim_head)
         k = self.to_k(context).view(b, m, self.heads, self.dim_head)
         v = self.to_v(context).view(b, m, self.heads, self.dim_head)
-        if flash_self_attention_ok(n, m, self.dim_head):
-            # The kernels read the (b, n, heads, d) projections in place and
-            # write their result in the same layout: no transposed copies.
-            out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                  sm_scale=1.0 / math.sqrt(self.dim_head))
-            out = out.transpose(1, 2).reshape(b, n, -1)
-        else:
-            attn = torch.matmul(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))
-            attn = attn / math.sqrt(self.dim_head)
-            attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
-            out = torch.matmul(attn, v.permute(0, 2, 1, 3)).permute(0, 2, 1, 3).reshape(b, n, -1)
+        flash = flash_self_attention_ok(n, m, self.dim_head)
+        with attention_span("k2" if flash else "matmul", q.dtype, b, self.heads, n, m,
+                            self.dim_head):
+            if flash:
+                # The kernels read the (b, n, heads, d) projections in place
+                # and write their result in the same layout: no transposed
+                # copies.
+                out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                      sm_scale=1.0 / math.sqrt(self.dim_head))
+                out = out.transpose(1, 2).reshape(b, n, -1)
+            else:
+                attn = torch.matmul(q.permute(0, 2, 1, 3), k.permute(0, 2, 3, 1))
+                attn = attn / math.sqrt(self.dim_head)
+                attn = torch.softmax(attn.float(), dim=-1).to(q.dtype)
+                out = torch.matmul(attn, v.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+                out = out.reshape(b, n, -1)
         return self.to_out[0](out)
 
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 
 from rgie_tpu_torch.diffusion.unet import Float32Conv2d, GroupNorm32, _Block
 from rgie_tpu_torch.ops.kernels.flash_attention import flash_attention, flash_self_attention_ok
+from rgie_tpu_torch.utils.spans import attention_span
 
 SD_SCALING = 0.18215
 SDXL_SCALING = 0.13025
@@ -88,12 +89,14 @@ class VaeAttention(nn.Module):
         n = h * w
         y = self.group_norm(x).permute(0, 2, 3, 1).reshape(b, n, c)
         q, k, v = self.to_q(y), self.to_k(y), self.to_v(y)
-        if flash_self_attention_ok(n, n, c):
-            y = flash_attention(q[:, None], k[:, None], v[:, None],
-                                sm_scale=1.0 / math.sqrt(c))[:, 0]
-        else:
-            attn = torch.softmax(torch.matmul(q, k.transpose(1, 2)) / math.sqrt(c), dim=-1)
-            y = torch.matmul(attn, v)
+        flash = flash_self_attention_ok(n, n, c)
+        with attention_span("k2" if flash else "matmul", q.dtype, b, 1, n, n, c):
+            if flash:
+                y = flash_attention(q[:, None], k[:, None], v[:, None],
+                                    sm_scale=1.0 / math.sqrt(c))[:, 0]
+            else:
+                attn = torch.softmax(torch.matmul(q, k.transpose(1, 2)) / math.sqrt(c), dim=-1)
+                y = torch.matmul(attn, v)
         y = self.to_out[0](y)
         return x + y.reshape(b, h, w, c).permute(0, 3, 1, 2)
 

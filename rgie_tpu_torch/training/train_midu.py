@@ -22,6 +22,7 @@ import torch.nn as nn
 from rgie_tpu_torch.config import TrainGuidanceConfig
 from rgie_tpu_torch.parallel.mesh import Mesh, all_mean, create_mesh
 from rgie_tpu_torch.parallel.model_axis import model_shards
+from rgie_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass
@@ -58,17 +59,18 @@ def make_train_step(average_gradients: bool = False, mesh: Optional[Mesh] = None
     data axis)."""
 
     def train_step(state: TrainState, features: torch.Tensor, labels: torch.Tensor):
-        state.optimizer.zero_grad(set_to_none=True)
-        with torch.enable_grad():
-            out = state.model(features)
-            loss = _mse(out, labels)
-            loss.backward()
-        loss = loss.detach()
-        if average_gradients:
-            loss = _all_mean_gradients(state.model, loss, mesh or create_mesh())
-        state.optimizer.step()
-        state.step += 1
-        return state, loss, out.detach()
+        with span("train.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            with torch.enable_grad():
+                out = state.model(features)
+                loss = _mse(out, labels)
+                loss.backward()
+            loss = loss.detach()
+            if average_gradients:
+                loss = _all_mean_gradients(state.model, loss, mesh or create_mesh())
+            state.optimizer.step()
+            state.step += 1
+            return state, loss, out.detach()
 
     return train_step
 

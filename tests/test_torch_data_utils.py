@@ -2,7 +2,7 @@
 ``data/augmentor.py`` and ``dataset.augment_image``, ``data/stores.py``,
 ``data/prefetch.py``, ``data/native_preprocess.py`` (and
 ``cli/bench_preprocess.py``), ``losses/compound.py``,
-``utils/yaml_config.py``, ``utils/logging.py``, ``utils/misc.py``,
+``utils/yaml_config.py``, ``utils/misc.py``,
 ``utils/bench_history.py``, and ``utils/checkpoint.py``'s
 ``save_checkpoint``/``load_checkpoint`` and ``EditManifest``; also the
 profile flags of ``cli/bench.py`` (``--steps``, ``--top``, ``--logdir``,
@@ -220,13 +220,6 @@ def test_yaml_config_equals_jax(tmp_path):
 def test_metrics_logger_and_misc_equal_jax(tmp_path, rng):
     from rgie_tpu.utils import misc as MJ
     from rgie_tpu_torch.utils import misc as M
-    from rgie_tpu_torch.utils.logging import MetricsLogger
-
-    with MetricsLogger(str(tmp_path), run_name="run", config={"lr": 0.1}) as log:
-        log.log({"loss": np.float32(0.5)}, step=3)
-    lines = [json.loads(line) for line in open(tmp_path / "run.jsonl")]
-    assert lines[0]["event"] == "config" and lines[0]["step"] == 0
-    assert lines[1]["loss"] == 0.5 and lines[1]["step"] == 3
 
     a, b = rng.standard_normal((3, 2)), rng.standard_normal((3, 2))
     assert np.array_equal(M.interweave_batch_tensors(a, b), MJ.interweave_batch_tensors(a, b))

@@ -34,7 +34,7 @@ def test_every_module_imports_without_jax():
     assert {f"rgie_tpu_torch.{n}" for n in (
         "parallel.mesh", "parallel.distributed", "data.native_preprocess", "data.augmentor",
         "data.prefetch", "data.stores", "losses.compound", "models.layers",
-        "utils.bench_history", "utils.logging", "utils.misc", "utils.yaml_config",
+        "utils.bench_history", "utils.misc", "utils.yaml_config",
         "cli.bench_preprocess")} <= set(names)
     code = (
         "import importlib, sys\n"
