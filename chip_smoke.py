@@ -19,7 +19,9 @@ Phases (every check raises; nothing is caught):
    call replayed from a CUDA graph). K2 (flash attention forward,
    backward dK/dV, backward dQ): the UNet's (2, 5, 16384, 64), the VAE's
    (1, 1, 16384, 512), (1, 2, 16384, 256) (as many operations as the VAE's,
-   at half its width), the ragged (1, 5, 9000, 64) and (1, 1, 2100, 512),
+   at half its width), the cells' d = 64 self-attention (``CELL_K2_SHAPES``:
+   SD-2.1 at 512 px at batch 8 and its CFG pair of 16, SDXL at 1024 px at
+   batch 2 and its pair of 4), the ragged (1, 5, 9000, 64) and (1, 1, 2100, 512),
    and widths 32, 128, 36, 256, 192 and 136 (the last two ragged in N and
    zero-filled to 256 columns by the wide float32 dK/dV and dQ), in float32
    and bfloat16; tolerances in ``K2_TOLERANCE`` below; the route of each of
@@ -36,7 +38,7 @@ Phases (every check raises; nothing is caught):
    products the wide kernels compute twice (``wide_backward_repeat``);
    float32 dQ is also timed at
    (1, 5, 16384, 64), the null-text step's shape. Kernel and matmul routes
-   are also timed at (2, 10, 4096, 64), below the modules' gate, in both
+   are also timed at (2, 10, 4096, 64), SDXL's top attention level, in both
    types. The shapes a batch of 2 adds, (4, 5, 16384, 64) and
    (2, 1, 16384, 512), forward only, in bfloat16: checked and timed beside
    the plain version, ``sdpa`` and the bound.
@@ -55,20 +57,25 @@ Phases (every check raises; nothing is caught):
    ``MiduSD``), random weights from the seed, ``--dtype float32`` with TF32
    off, null-text optimization on, ``--cfg-scale 2.0 --clf-scale 0.2
    --reference-value 0.1`` and ``FLOAT32_STEPS`` DDIM steps (the only cut:
-   the CLI's default is 50). Checks: each K2 launch count equals the count
-   the code implies (derived and printed); latents, null-text embeddings and
+   the CLI's default is 50). Checks: the derivation's K2 sites equal the
+   numbers pinned in ``PINNED_UNET_SITES`` and ``PINNED_VAE_SITES``; each K2
+   launch count equals the count the code implies (derived and printed); latents, null-text embeddings and
    the image finite; the image (1, 1024, 1024, 3) in [0, 1]; every
    classifier-guidance gradient non-zero; the null-text embeddings and their
    Adam moments float32.
-5. Card against CPU with the same full-width modules at 256 px (below the
-   gate, so this holds everything but the kernels): one CFG +
+5. Card against CPU with the same full-width modules at 256 px (the kernels
+   at the UNet's 1024- and 256-position sites against the plain tiled version
+   on the CPU): one CFG +
    classifier-guidance sampling step, the loss and gradient of one
    null-text inner step, and the first two table-DPM inversion steps:
    rtol 1e-3.
 6. Kernel route against plain route through the modules: ``CrossAttention``
-   (self) and ``VaeAttention`` outputs and input gradients at the path's
+   (self) and ``VaeAttention`` outputs and input gradients at the paths'
    shapes against the same projections fed to the plain flash attention, in
-   float32 and (after phase 7's models are built) in bfloat16.
+   float32 and (after phase 7's models are built) in bfloat16: the UNet's top
+   level at 1024 px, batch 2, and at 512 px, batch 8 (4096 positions), its
+   third level at 512 px, batch 16 (256 positions, 20 heads), and the VAE's
+   mid block at 1024 px.
 7. The diffusion edit in bfloat16, the type the CLI takes at ``--scale sd``
    when no ``--dtype`` is given: the same image, options and checks as phase
    4 at ``DIFFUSION_STEPS`` DDIM steps. Before it, the same bfloat16 models
@@ -85,16 +92,16 @@ Phases (every check raises; nothing is caught):
    table's length printed), null-text optimization on, ``--cfg-scale 2.0
    --clf-scale 0.2 --reference-value 0.1`` and ``SDXL_STEPS`` DPM steps (the
    only cut: the CLI's default is 50). Checks: the K2 launch counts equal
-   the derivation (the VAE's mid block, 16384 positions, once per VAE pass,
-   on the forward's ``wide`` route; no backward launch; the UNet attends
-   over 4096 positions or fewer, below the gate); latents, null-text
-   embeddings and the image finite; the image (1, 1024, 1024, 3) in [0, 1];
+   the derivation (the UNet's 10 sites at 4096 positions and 60 at 1024, as
+   in phase 4's derivation; the VAE's mid block, 16384 positions, once per
+   VAE pass, on the forward's ``wide`` route, with no backward); latents,
+   null-text embeddings and the image finite; the image (1, 1024, 1024, 3) in [0, 1];
    every classifier-guidance gradient non-zero; the pooled embeddings, the
    time ids, the null-text embeddings and their Adam moments float32;
    seconds per phase and peak memory printed.
 9. Card against CPU for SDXL: float32 copies of that stack's UNet at 256 px
-   (1024 and 256 positions, below the gate) on the card and on the CPU: one
-   CFG + classifier-guidance sigma-space DPM step with the SDXL conditioning
+   (1024 and 256 positions: the kernels on the card, their plain version on
+   the CPU): one CFG + classifier-guidance sigma-space DPM step with the SDXL conditioning
    (through a ``MiduSD`` head: ``MiduSDXL`` reads the 32 x 32 mid features
    of 1024 px only), and the loss and gradient of one null-text inner step:
    rtol 1e-3.
@@ -139,8 +146,9 @@ Phases (every check raises; nothing is caught):
 15. Midu training through its CLI (``cli/train_guidance_clf.py``) at
    ``--scale sd`` (SD-2.1 width, 512 px, bfloat16 frozen models, random
    weights and images from the seed) for 2 steps at batch 8 and one
-   validation batch; then the best checkpoint is read into phase 7's stack
-   by ``--midu-ckpt``'s loader (``strict=True``) and held equal to it.
+   validation batch (K2 forward launches: the UNet's 15 sites at 4096, 1024
+   and 256 positions per batch; no backward, no K1); then the best
+   checkpoint is read into phase 7's stack by ``--midu-ckpt``'s loader (``strict=True``) and held equal to it.
 16. The batched edit through the diffusion CLI's ``adapt_batches`` at
    ``--batch BATCH`` on a feed of random 1024 px JPEGs, on phase 7's stack
    (bfloat16, the trained midu) at ``BATCH_STEPS`` DDIM steps. Checks: the
@@ -152,16 +160,17 @@ Phases (every check raises; nothing is caught):
 17. ControlNet at SD-2.1 width on phase 7's bfloat16 UNet (zero convolutions
    drawn away from zero), 1024 px, batch 2: forward and backward of
    ``controlled_unet_apply`` to the latents and the control image; K2 launches
-   equal the derived count (the UNet's 5 top-level sites and the ControlNet's
-   copies of its top down block, each with a backward); kernel route against
+   equal the derived count (the UNet's 16 sites and the ControlNet's copies
+   of its down and mid blocks' 7, each with a backward); kernel route against
    plain route (the modules' flash attention swapped for its plain version):
    ``CN_OUT_TOL`` / ``CN_GRAD_TOL`` of the largest entry. Then float32 copies on
    the card against the CPU at ``CN_CPU_SIZE`` px: 1e-3.
 18. Midu training at SDXL width on phase 8's stack (run after phase 10): the
    training CLI's ``features_and_labels`` and train step, ``MIDU_STEPS`` steps
-   at batch ``MIDU_BATCH``, 1024 px; K2-fwd ``wide`` once per VAE encode and no
-   other launch. One float32 step on the card against the CPU from the same
-   weights on the same features and labels. The teacher is float32 (checked
+   at batch ``MIDU_BATCH``, 1024 px; K2-fwd ``wide`` once per VAE encode, the
+   forward at the UNet's 70 sites once per step, and no backward. One float32
+   step on the card against the CPU from the same weights on the same
+   features and labels. The teacher is float32 (checked
    here and in phase 15, where the UNet and VAE are bfloat16).
 19. The dataset transform run through its CLI (``cli/run_img_trans.py``):
    ``TRANS_IMAGES`` random 1024 px JPEGs in a COCO layout, ``--type CUSTOM
@@ -175,7 +184,8 @@ Phases (every check raises; nothing is caught):
 21. The analysis: ``cli/process_result_images.py --fid`` on phase 19's
    originals and outputs (full-width Inception-v3, random weights); Inception
    card against CPU in float32 (``INCEPTION_RTOL``); ``cli/run_eval_report.py
-   --scale sd`` with its steps cut (512 px: no K1, no K2 launch).
+   --scale sd`` with its steps cut (512 px: no K1; its K2 launches, forward
+   and backward, equal those its UNet calls imply, ``derived_unet_launches``).
 22. Slice F: two ranks share the one card in an explicit ``gloo`` group
    (``parallel.spawn_ranks``: processes started with ``multiprocessing``'s
    spawn), each running the four CLIs with its share of the global batch:
@@ -233,6 +243,7 @@ Exits non-zero, printing no result, without CUDA or outside a checkout of
 the repository.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -249,8 +260,6 @@ TOLERANCE = 2e-5
 # The diffusion edits: phase 7's (bfloat16) and phase 4's (float32) DDIM steps.
 DIFFUSION_SIZE, DIFFUSION_STEPS, FLOAT32_STEPS = 1024, 20, 6
 CFG_SCALE, CLF_SCALE, REFERENCE_VALUE = 2.0, 0.2, 0.1
-ATTENTION_SITES_UNET = 5   # down_0_attn_0/1, up_3_attn_0/1/2: 16384 positions, 5 heads of 64
-ATTENTION_SITES_UNET_DOWN = 2  # the sites a gradient through the mid features reaches
 # The SDXL edit's DPM steps (phase 8), and the sizes of its checks against
 # the CPU (phases 9 and 10).
 SDXL_STEPS, SDXL_CPU_SIZE, TILED_VAE_SIZE, VAE_TILE = 6, 256, 512, 32
@@ -283,6 +292,12 @@ BATCH, BATCH_STEPS, BATCH_CHECK_STEPS, BATCH_CHECK_INNER, BATCH_RTOL = 2, 6, 2, 
 # The K2 shapes a batch of 2 adds: the CFG pair of two images, and two images
 # through the VAE's mid block (phase 16; also phase 18's VAE encode).
 BATCH_K2_SHAPES = [(4, 5, 16384, 64), (2, 1, 16384, 512)]
+# The benchmark cells' d = 64 self-attention (phase 2): SD-2.1 at 512 px, its
+# 4096-position sites at batch 8 and the CFG pair of 16, its 1024- and
+# 256-position sites in the pair; SDXL at 1024 px, its 4096-position sites at
+# batch 2 and its 1024-position sites in the CFG pair of 4.
+CELL_K2_SHAPES = [(8, 5, 4096, 64), (16, 5, 4096, 64), (16, 10, 1024, 64), (16, 20, 256, 64),
+                  (2, 10, 4096, 64), (4, 20, 1024, 64)]
 # ControlNet (phase 17): the controlled UNet's kernel route against its plain
 # route in bfloat16, through 7 attention sites in two networks: 2^-5 of the
 # largest entry on eps and the mid features, 5e-2 on the gradients (the limits
@@ -430,9 +445,9 @@ def flash_attention_phase(device, card):
     errors = {dtype: {"fwd": 0.0, "dkv": 0.0, "dq": 0.0} for dtype in K2_TOLERANCE}
     timings = {}
     unet_shape, vae_shape = (2, 5, 16384, 64), (1, 1, 16384, 512)
-    for shape in [unet_shape, vae_shape, (1, 2, 16384, 256), (1, 5, 9000, 64), (2, 3, 1000, 32),
-                  (1, 2, 2100, 128), (1, 2, 1000, 36), (1, 1, 2100, 512), (1, 2, 1000, 256),
-                  (1, 2, 700, 192), (1, 1, 130, 136)]:
+    for shape in [unet_shape, vae_shape, (1, 2, 16384, 256), *CELL_K2_SHAPES, (1, 5, 9000, 64),
+                  (2, 3, 1000, 32), (1, 2, 2100, 128), (1, 2, 1000, 36), (1, 1, 2100, 512),
+                  (1, 2, 1000, 256), (1, 2, 700, 192), (1, 1, 130, 136)]:
         for dtype, tol in K2_TOLERANCE.items():
             q, k, v, do = make(shape, dtype, shape[2] + shape[3])
             scale = 1.0 / shape[3] ** 0.5
@@ -539,8 +554,9 @@ def flash_attention_phase(device, card):
           f"{nto_bound[0]:.3f}; library sdpa backward (dq, dk, dv at once) {nto_dq[1]:.3f}")
     del q, k, v, do, o, lse, di, qs, ks, vs, dos, qg, kg, vg, lib_out
 
-    # Below the gate: the kernel route against the modules' matmul route, in
-    # both types (the gate's threshold is recorded against them, not moved).
+    # SDXL's top attention level: the kernel route against the modules'
+    # matmul route, in both types (``cli/check_flash_attn.py`` times both
+    # routes at every shape the gate decides).
     shape = (2, 10, 4096, 64)
     scale = 1.0 / 8.0
 
@@ -668,26 +684,129 @@ def flash_attention_phase(device, card):
     return entries
 
 
-def expected_flash_launches(steps, nto_inner_steps):
+def flash_sites(ucfg, latent_hw):
+    """The UNet's self-attention sites that the gate sends to K2 at latents of
+    ``latent_hw`` x ``latent_hw``, from the configuration's blocks:
+    ``(all, down, first)``. ``down`` counts the down and mid blocks' sites,
+    those a gradient through the mid features reaches; ``first`` is 1 where
+    the UNet's first site is one of them (it precedes the first
+    cross-attention, so null-text optimization has no backward there). SD-2.1
+    at 1024 px: 5 sites at 16384 positions, 5 at 4096, 5 at 1024 and the mid
+    block's at 256, all 5 heads of 64 wide."""
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+
+    def gated(level):
+        n = (latent_hw >> level) ** 2
+        width = ucfg.block_out_channels[level] // ucfg.attention_head_dim[level]
+        return int(FA.flash_self_attention_ok(n, n, width))
+
+    last = len(ucfg.block_out_channels) - 1
+    levels = [lv for lv, kind in enumerate(ucfg.down_block_types)
+              if kind == "CrossAttnDownBlock2D"]
+    down = sum(gated(lv) * ucfg.layers_per_block * ucfg.transformer_layers_per_block[lv]
+               for lv in levels) + gated(last) * ucfg.transformer_layers_per_block[last]
+    up = sum(gated(last - bi) * (ucfg.layers_per_block + 1)
+             * ucfg.transformer_layers_per_block[last - bi]
+             for bi, kind in enumerate(ucfg.up_block_types) if kind == "CrossAttnUpBlock2D")
+    return down + up, down, gated(levels[0])
+
+
+#: The sites the derivations give, pinned (``check_flash_sites``), so that a
+#: change of the gate has to change them here on purpose. UNet (config, latent
+#: side): (all, down and mid, first); VAE (config, image side): launches a pass.
+PINNED_UNET_SITES = {("sd21", 128): (16, 7, 1), ("sd21", 64): (15, 6, 1),
+                     ("sdxl", 128): (70, 34, 1)}
+PINNED_VAE_SITES = {("sd", 1024): 1, ("sd", 512): 0, ("sdxl", 1024): 1}
+
+
+def check_flash_sites():
+    """``flash_sites`` and ``vae_flash`` against ``PINNED_UNET_SITES`` and
+    ``PINNED_VAE_SITES``: SD-2.1 at 1024 px 16 sites (7 in the down and mid
+    blocks, the first among them), at 512 px 15 (the 64-position mid block
+    off), SDXL at 1024 px 70 (10 at 4096 positions, 60 at 1024); the VAE's
+    512-wide head at 16384 positions, not at 4096."""
+    from rgie_tpu_torch.diffusion.unet import UNetConfig
+    from rgie_tpu_torch.diffusion.vae import VaeConfig
+
+    for (name, hw), want in PINNED_UNET_SITES.items():
+        got = flash_sites(getattr(UNetConfig, name)(), hw)
+        print(f"K2 sites of the {name} UNet at {hw} x {hw} latents: {got}, pinned {want}")
+        check(got == want, f"the {name} UNet's K2 sites at {hw} x {hw} moved: {got}")
+    for (name, size), want in PINNED_VAE_SITES.items():
+        got = vae_flash(getattr(VaeConfig, name)(), size)
+        check(got == want, f"the {name} VAE's K2 launches at {size} px moved: {got}")
+
+
+@contextlib.contextmanager
+def derived_unet_launches():
+    """While open, each UNet forward adds the K2 launches the gate implies for
+    it to the yielded counts: ``fwd`` its sites; ``dkv`` (and dQ alike) the
+    sites a gradient reaches from what the pipeline differentiates to, the
+    latents (classifier guidance: the down and mid blocks' sites) or the
+    embeddings (null-text optimization: every site but a first one that
+    precedes the first cross-attention); ``calls`` the forwards."""
+    from rgie_tpu_torch.diffusion import unet as U
+
+    counts = {"calls": 0, "fwd": 0, "dkv": 0}
+    forward = U.UNet2DCondition.forward
+
+    def counted(self, sample, timesteps, encoder_hidden_states, *args, **kwargs):
+        u, d, first = flash_sites(self.cfg, sample.shape[1])
+        counts["calls"] += 1
+        counts["fwd"] += u
+        if torch.is_grad_enabled() and sample.requires_grad:
+            counts["dkv"] += d
+        elif torch.is_grad_enabled() and encoder_hidden_states.requires_grad:
+            counts["dkv"] += u - first
+        return forward(self, sample, timesteps, encoder_hidden_states, *args, **kwargs)
+
+    U.UNet2DCondition.forward = counted
+    try:
+        yield counts
+    finally:
+        U.UNet2DCondition.forward = forward
+
+
+def vae_flash(vcfg, size):
+    """1 where the gate sends the VAE's mid-block attention (one head as wide
+    as its channels) at ``size`` px to K2, else 0."""
+    from rgie_tpu_torch.ops.kernels import flash_attention as FA
+
+    n = (size >> (len(vcfg.block_out_channels) - 1)) ** 2
+    return int(FA.flash_self_attention_ok(n, n, vcfg.block_out_channels[-1]))
+
+
+def expected_flash_launches(steps, nto_inner_steps, sites=None, vae=None, invert_steps=None):
     """The K2 launches one single-image edit implies, with its derivation.
-    Every UNet forward at 128 x 128 latents launches the forward kernel at its
-    5 top-level self-attention sites, every VAE pass once."""
-    u, d = ATTENTION_SITES_UNET, ATTENTION_SITES_UNET_DOWN
+    Every UNet forward launches the forward kernel at each of its ``sites``
+    (``flash_sites``; by default SD-2.1's at ``DIFFUSION_SIZE``), every VAE
+    pass ``vae`` times (by default the SD VAE's at ``DIFFUSION_SIZE``: once).
+    ``invert_steps`` (by default ``steps``) is the inversion table's length."""
+    from rgie_tpu_torch.diffusion.unet import UNetConfig
+    from rgie_tpu_torch.diffusion.vae import VaeConfig
+
+    if sites is None:
+        sites = flash_sites(UNetConfig.sd21(), DIFFUSION_SIZE // 8)
+    if vae is None:
+        vae = vae_flash(VaeConfig.sd(), DIFFUSION_SIZE)
+    u, d, first = sites
+    inv = steps if invert_steps is None else invert_steps
     inner = sum(nto_inner_steps)
     lines = [
-        ("score the original: VAE encode + UNet", 1 + u, 0),
-        ("VAE encode", 1, 0),
-        (f"invert: {steps} UNet forwards", steps * u, 0),
+        ("score the original: VAE encode + UNet", vae + u, 0),
+        ("VAE encode", vae, 0),
+        (f"invert: {inv} UNet forwards", inv * u, 0),
         # The first site precedes the first cross-attention, so its inputs do
         # not depend on the embeddings and it has no backward.
         (f"null-text: {steps} outer steps x (cond forward + CFG pair forward) + {inner} inner "
-         f"steps x (forward, backward at {u - 1} sites)", steps * 2 * u + inner * u,
-         inner * (u - 1)),
+         f"steps x (forward, backward at {u - first} sites)", steps * 2 * u + inner * u,
+         inner * (u - first)),
         (f"sample: {steps} steps x (CFG pair forward + guidance forward, backward through the "
-         f"{d} sites below the mid block)", steps * 2 * u, steps * d),
-        ("VAE decode", 1, 0),
-        ("rescore the edit: VAE encode + UNet", 1 + u, 0),
+         f"{d} sites of the down and mid blocks)", steps * 2 * u, steps * d),
+        ("VAE decode", vae, 0),
+        ("rescore the edit: VAE encode + UNet", vae + u, 0),
     ]
+    print(f"  K2 sites: {u} a UNet forward ({d} in the down and mid blocks), {vae} a VAE pass")
     for what, fwd, bwd in lines:
         print(f"  launches expected, {what}: forward {fwd}, dK/dV {bwd}, dQ {bwd}")
     return sum(f for _, f, _ in lines), sum(b for _, _, b in lines)
@@ -882,16 +1001,23 @@ def module_route_phase(stack, rng):
         check(e_y <= limit_y and e_g <= limit_g,
               f"{name}: kernel route disagrees with the plain route in {dtype}")
 
-    attn = pipe.unet.down_blocks[0].attentions[0].transformer_blocks[0].attn1
+    def cross_plain(attn):
+        def plain(x):
+            b, n, _ = x.shape
+            q, k, v = (proj(x).view(b, n, attn.heads, attn.dim_head).transpose(1, 2)
+                       for proj in (attn.to_q, attn.to_k, attn.to_v))
+            out = FA.plain_flash_attention(q, k, v, 1.0 / attn.dim_head ** 0.5)
+            return attn.to_out[0](out.transpose(1, 2).reshape(b, n, -1))
+        return plain
 
-    def cross_plain(x):
-        b, n, _ = x.shape
-        q, k, v = (proj(x).view(b, n, attn.heads, attn.dim_head).transpose(1, 2)
-                   for proj in (attn.to_q, attn.to_k, attn.to_v))
-        out = FA.plain_flash_attention(q, k, v, 1.0 / attn.dim_head ** 0.5)
-        return attn.to_out[0](out.transpose(1, 2).reshape(b, n, -1))
-
-    compare("CrossAttention (self)", attn, cross_plain, (2, 16384, 320))
+    # The top level at 1024 px (batch 2) and at 512 px (batch 8: 4096
+    # positions), the third level at 512 px in the CFG pair of a batch of 8
+    # (256 positions, 20 heads of 64).
+    for level, shape in ((0, (2, 16384, 320)), (0, (8, 4096, 320)), (2, (16, 256, 1280))):
+        attn = pipe.unet.down_blocks[level].attentions[0].transformer_blocks[0].attn1
+        check(FA.flash_self_attention_ok(shape[1], shape[1], attn.dim_head),
+              f"the gate is closed at {shape}")
+        compare(f"CrossAttention (self, level {level})", attn, cross_plain(attn), shape)
 
     vattn = pipe.vae.decoder.mid_block.attentions[0]
 
@@ -903,20 +1029,6 @@ def module_route_phase(stack, rng):
         return x + vattn.to_out[0](y).reshape(b, h, w, c).permute(0, 3, 1, 2)
 
     compare("VaeAttention", vattn, vae_plain, (1, 512, 128, 128))
-
-
-def expected_sdxl_flash_launches():
-    """The K2 launches of one SDXL edit at 1024 px, with the derivation: the
-    VAE's mid block attends over 128 x 128 = 16384 positions with one head of
-    512 (the forward's wide route), once per VAE pass; the UNet's
-    self-attention sits at 64 x 64 and 32 x 32 (4096 and 1024 positions),
-    below the gate, and nothing differentiates the VAE."""
-    lines = [("score the original: VAE encode", 1), ("VAE encode", 1),
-             ("invert, null-text optimization, sample: UNet only", 0), ("VAE decode", 1),
-             ("rescore the edit: VAE encode", 1)]
-    for what, fwd in lines:
-        print(f"  launches expected, {what}: forward {fwd}, dK/dV 0, dQ 0")
-    return sum(f for _, f in lines)
 
 
 def sdxl_path_phase(device, image_path, card):
@@ -956,11 +1068,18 @@ def sdxl_path_phase(device, image_path, card):
 
     print(f"SDXL edit {dtype}: {SDXL_STEPS} DPM steps (the CLI's default is 50; nothing else is "
           f"cut), null-text inner steps per outer step {log.nto_inner_steps}")
-    want = expected_sdxl_flash_launches()
+    # The UNet's self-attention at 64 x 64 and 32 x 32 (10 sites at 4096
+    # positions, 60 at 1024); the VAE's mid block at 128 x 128 (16384
+    # positions, one head of 512: the forward's wide route), which nothing
+    # differentiates.
+    want_fwd, want_bwd = expected_flash_launches(
+        SDXL_STEPS, log.nto_inner_steps, flash_sites(pipe.unet.cfg, DIFFUSION_SIZE // 8),
+        vae_flash(pipe.vae.cfg, DIFFUSION_SIZE), len(pipe.invert_tables()[0]))
     print(f"  launches counted: forward {counts[0]}, dK/dV {counts[1]}, dQ {counts[2]}; expected "
-          f"{want}, 0, 0; forward route at the VAE's head: "
+          f"{want_fwd}, {want_bwd}, {want_bwd}; forward route at the VAE's head: "
           f"{FA.kernel_route('fwd', dtype, pipe.vae.cfg.block_out_channels[-1])}")
-    check(counts == (want, 0, 0), "SDXL K2 launch counts differ from the derivation")
+    check(counts == (want_fwd, want_bwd, want_bwd),
+          "SDXL K2 launch counts differ from the derivation")
     check(FA.kernel_route("fwd", dtype, pipe.vae.cfg.block_out_channels[-1]) == "wide",
           "the SDXL VAE's attention is not on the wide route")
 
@@ -1199,12 +1318,18 @@ def training_cli_phase(work, card):
     launches = kernel_launches()
     with open(os.path.join(out, "best_meta.json")) as f:
         meta = json.load(f)
+    # Two training batches and one validation batch, each a VAE encode and a
+    # UNet forward without a backward, at 512 px: the UNet's sites at 4096,
+    # 1024 and 256 positions; the VAE's 512-wide head over 4096 positions
+    # stays on the matmul route.
+    sites = flash_sites(stack.unet.cfg, 512 // 8)[0] + vae_flash(stack.vae.cfg, 512)
+    want = (0, 3 * sites, 0, 0)
     print(f"midu training CLI, --scale sd, 512 px, batch 8, 2 steps: {seconds:.1f} s (models made "
           f"on the host included), best validation loss {meta['val_loss']:.5f} at step "
-          f"{meta['step']}; K1/K2 launches {launches} (512 px: the VAE attends over 4096 "
-          f"positions, below the gate); on {card}")
+          f"{meta['step']}; K1/K2 launches {launches}, expected {want} (3 batches x {sites} "
+          f"sites); on {card}")
     check(meta["step"] == 2 and np.isfinite(meta["val_loss"]), "midu training: checkpoint meta")
-    check(launches == (0, 0, 0, 0), f"midu training at 512 px launched K1/K2: {launches}")
+    check(launches == want, f"midu training at 512 px: K1/K2 launches {launches}")
     return os.path.join(out, "best.pt"), {"seconds": seconds,
                                           "peak": torch.cuda.max_memory_allocated() - held}
 
@@ -1363,16 +1488,16 @@ def controlnet_phase(stack, rng, card):
     finally:
         U.flash_attention = saved
     check(kernel_launches()[1:] == counts, "the plain route launched K2")
-    # Every self-attention site at 128 x 128 latents: the UNet's and the
-    # ControlNet's copies of the top down block; all of them depend on the
-    # latents, so each has a backward.
-    cn_sites = cfg.layers_per_block * cfg.transformer_layers_per_block[0]
-    sites = ATTENTION_SITES_UNET + cn_sites
+    # Every self-attention site the gate admits at 128 x 128 latents: the
+    # UNet's and the ControlNet's copies of its down and mid blocks; all of
+    # them depend on the latents, so each has a backward.
+    unet_sites, cn_sites, _ = flash_sites(cfg, hw)
+    sites = unet_sites + cn_sites
     errs = {name: rel_err(k, p) for name, k, p in zip(
         ("eps", "mid features", "latents gradient", "control image gradient"), kernel, plain)}
     print(f"ControlNet, SD-2.1 width, 1024 px, batch 2, {str(dtype)[6:]}: forward and backward of "
           f"controlled_unet_apply in {kernel_s:.3f} s (ControlNet made in {build_s:.1f} s); K2 "
-          f"launches {counts}, expected {sites} each ({ATTENTION_SITES_UNET} UNet sites + "
+          f"launches {counts}, expected {sites} each ({unet_sites} UNet sites + "
           f"{cn_sites} ControlNet sites); kernel route against plain route: "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + f" (limits {CN_OUT_TOL:g}, gradients {CN_GRAD_TOL:g}); on {card}")
@@ -1443,14 +1568,17 @@ def sdxl_training_phase(stack, card):
         times.append(time.perf_counter() - t0)
     counts = kernel_launches()[1:]
     route = FA.kernel_route("fwd", dtype, pipe.vae.cfg.block_out_channels[-1])
+    unet_sites = flash_sites(pipe.unet.cfg, DIFFUSION_SIZE // 8)[0]
+    want = (MIDU_STEPS * (vae_flash(pipe.vae.cfg, DIFFUSION_SIZE) + unet_sites), 0, 0)
     print(f"SDXL midu training, 1024 px, batch {MIDU_BATCH}, frozen models {str(dtype)[6:]}: "
           f"losses {losses}, seconds per step {[round(t, 3) for t in times]} (the first "
-          f"includes warm-up); K2 launches {counts}, expected ({MIDU_STEPS}, 0, 0): the VAE "
-          f"encode's {route} forward, once per step; features {tuple(feats.shape)}; teacher "
-          f"{str(teacher_dtype)[6:]}, labels {str(labels.dtype)[6:]}; on {card}")
+          f"includes warm-up); K2 launches {counts}, expected {want}: once per step the VAE "
+          f"encode's {route} forward and the UNet forward's {unet_sites} sites, no backward; "
+          f"features {tuple(feats.shape)}; teacher {str(teacher_dtype)[6:]}, labels "
+          f"{str(labels.dtype)[6:]}; on {card}")
     check(teacher_dtype == torch.float32 and labels.dtype == torch.float32,
           "SDXL training: the teacher or its labels are not float32")
-    check(counts == (MIDU_STEPS, 0, 0) and route == "wide", "SDXL training K2 launches")
+    check(counts == want and route == "wide", "SDXL training K2 launches")
     check(feats.shape == (MIDU_BATCH, 32, 32, 1280) and labels.shape == (MIDU_BATCH, 2),
           "SDXL training features and labels")
     check(all(np.isfinite(losses)), "non-finite SDXL training loss")
@@ -1815,10 +1943,12 @@ def analysis_phase(device, work, originals_dir, outputs_dir, rng, card):
     at ``--scale sd --limit REPORT_IMAGES`` with ``REPORT_STEPS`` edit steps
     (cut from 100), ``REPORT_DIFF_STEPS`` diffusion steps (cut from 50) and
     ``REPORT_NTO_STEPS`` null-text inner steps (cut from 10), float32. It
-    runs at 512 px, where the diffusion attention attends over 4096
-    positions, below the gate, so it launches no K2 kernel; its parametric
-    edit renders with the separate ops, so no K1. Returns the K1/K2 launch
-    counts of (a) and (c)."""
+    runs at 512 px: each UNet call launches the K2 forward at the sites the
+    gate admits at 64 x 64 latents, and its backward dK/dV and dQ at those a
+    gradient reaches (``derived_unet_launches``: the calls are counted as
+    they are made); the VAE's 512-wide head stays on the matmul route; its
+    parametric edit renders with the separate ops, so no K1. Returns the K1/K2 launch counts of (a)
+    and (c)."""
     import shutil
 
     from rgie_tpu_torch.cli import process_result_images, run_eval_report
@@ -1866,11 +1996,12 @@ def analysis_phase(device, work, originals_dir, outputs_dir, rng, card):
     out = os.path.join(work, "eval_report")
     reset_kernel_launches()
     t0 = time.perf_counter()
-    report = run_eval_report.main([
-        "--scale", REPORT_SCALE, "--limit", str(REPORT_IMAGES), "--steps", str(REPORT_STEPS),
-        "--diff-steps", str(REPORT_DIFF_STEPS), "--nto-steps", str(REPORT_NTO_STEPS),
-        "--out-dir", out, "--device", str(device)])
-    torch.cuda.synchronize()
+    with derived_unet_launches() as derived:
+        report = run_eval_report.main([
+            "--scale", REPORT_SCALE, "--limit", str(REPORT_IMAGES), "--steps", str(REPORT_STEPS),
+            "--diff-steps", str(REPORT_DIFF_STEPS), "--nto-steps", str(REPORT_NTO_STEPS),
+            "--out-dir", out, "--device", str(device)])
+        torch.cuda.synchronize()
     report_counts = kernel_launches()
     print(f"run_eval_report --scale {REPORT_SCALE} --limit {REPORT_IMAGES}, {REPORT_STEPS} edit steps, "
           f"{REPORT_DIFF_STEPS} diffusion steps, {REPORT_NTO_STEPS} null-text inner steps: "
@@ -1884,7 +2015,10 @@ def analysis_phase(device, work, originals_dir, outputs_dir, rng, card):
     check(set(report["quality_vs_original"]) == {"param", "gan", "diff"} and all(
         np.isfinite(v) for q in report["quality_vs_original"].values() for v in q.values()),
         "eval report: quality")
-    check(report_counts == (0, 0, 0, 0), f"the eval report launched K1/K2: {report_counts}")
+    want = (0, derived["fwd"], derived["dkv"], derived["dkv"])
+    print(f"  the eval report's UNet calls {derived['calls']}, K1/K2 launches expected {want}")
+    check(report_counts == want and want[2] > 0,
+          f"the eval report's K1/K2 launches: {report_counts}")
     return counts, report_counts
 
 
@@ -2703,6 +2837,7 @@ def main():
     image_path = os.path.join(work, "random_1024.jpg")
     Image.fromarray((rng.uniform(0, 1, (DIFFUSION_SIZE, DIFFUSION_SIZE, 3)) * 255)
                     .astype(np.uint8)).save(image_path)
+    check_flash_sites()
     edit_args, stack = diffusion_models(device, image_path, "float32", FLOAT32_STEPS)
     counts_f32, latents_f32, _, _ = diffusion_path_phase(edit_args, stack, image_path,
                                                          FLOAT32_STEPS, card)

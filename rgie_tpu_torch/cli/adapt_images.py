@@ -22,10 +22,9 @@ SDXL edit steps over karras sigmas (lu lambdas asked for too, as in the
 reference, where karras takes precedence), forward and inverse; the SD edit
 over the alphas table. ``--device cuda`` (the default) fails when CUDA is
 missing, and the CPU is used only for ``--device cpu``.
-At 1024 px the VAE's mid-block attention (16384 positions) runs through the
-flash-attention CUDA kernels, and at ``--scale sd`` the UNet's top-level
-self-attention too; SDXL's UNet attends over 4096 positions or fewer, below
-the kernels' gate.
+The UNet's self-attention over 256 positions or more (every level but SD's
+mid block at 512 px) runs through the flash-attention CUDA kernels, and at
+1024 px the VAE's mid-block attention (16384 positions) too.
 
 Every batch size, the default 1 too, runs the batched edit
 (``diffusion/batched.py``): every UNet and VAE call takes the batch's images

@@ -23,7 +23,8 @@ float32.
 ``--scale tiny`` and ``tiny-xl`` are test sizes; ``sdxl`` trains
 ``MiduSDXL`` over the SDXL UNet's mid block at 1024 px (reference
 train_guidance_clf.py:52-54,89-98), where the VAE's mid-block attention
-(16384 positions) runs through the flash-attention forward kernel. The
+(16384 positions) runs through the flash-attention forward kernel, as the
+UNet's self-attention does at every scale. The
 port's ``MiduSDXL`` reads 32 x 32 mid features only, so ``tiny-xl`` needs
 ``--image-size 128``. Runs on ``--device cuda`` (the default) or ``cpu``.
 

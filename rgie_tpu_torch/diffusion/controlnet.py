@@ -20,8 +20,8 @@ Public tensors are NHWC, as the UNet's.
 
 The zero convolutions make the module an exact no-op at initialization (every
 residual is zero), so wiring it into a pipeline never perturbs an
-unconditioned edit. The ControlNet's top-level self-attention goes through
-the flash-attention kernels where the UNet's does (8192 positions and more).
+unconditioned edit. The ControlNet's self-attention goes through the
+flash-attention kernels where the UNet's does (256 positions and more).
 """
 
 from __future__ import annotations

@@ -12,9 +12,11 @@ The UNet RETURNS the mid-block activations as a second output: the midu
 guidance classifier reads them, and the gradient with respect to the latents
 flows through them for classifier guidance.
 
-Self-attention over 8192 and more positions goes through the flash-attention
-kernels (``ops/kernels/flash_attention.py``); everything else (the 77-key
-cross-attention, the shorter levels) is matmul, float32 softmax, matmul.
+Self-attention over 256 and more positions (every level of a 512 px UNet but
+its 64-position mid block) goes through the flash-attention kernels
+(``ops/kernels/flash_attention.py``, whose gate holds the measured
+crossover); everything else (the 77-key cross-attention, the shortest
+sequences) is matmul, float32 softmax, matmul.
 """
 
 from __future__ import annotations

@@ -74,7 +74,9 @@ class VaeResnetBlock(nn.Module):
 class VaeAttention(nn.Module):
     """Single-head self-attention over the positions of an NCHW map, head
     width = channels. At 1024 px (16384 positions) the matmul form would hold
-    a 16384 x 16384 score matrix per image; there the flash kernels run."""
+    a 16384 x 16384 score matrix per image; there the flash kernels run. At
+    512 px (4096 positions) the 512-wide head stays on the matmul form, which
+    the wide kernels do not beat there."""
 
     def __init__(self, channels: int, groups: int = 32):
         super().__init__()

@@ -43,11 +43,16 @@ Inside each C entry point a second dispatch goes by shape, the rule
 
 A launch that fails raises.
 
-The modules' gate (``flash_self_attention_ok``) also reads the environment
-variable ``RGIE_FLASH_ATTN`` once, when this module is imported, as the JAX
-package does: ``"0"`` closes the gate, so the attention modules take their
-matmul route on any device; any other value (``"auto"`` when unset) leaves the
-gate as it is.
+The modules' gate (``flash_self_attention_ok``) sends self-attention to the
+kernels from 256 positions at head widths that are multiples of 8 up to 64
+(bfloat16 on the tensor cores, float32 on the narrow forward) and from 8192
+at every other width the kernels take: the crossovers measured on the H100
+by ``cli/check_flash_attn.py``, where the JAX package keeps the TPU's 8192
+for every width. It also reads the
+environment variable ``RGIE_FLASH_ATTN`` once, when this module is imported,
+as the JAX package does: ``"0"`` closes the gate, so the attention modules
+take their matmul route on any device; any other value (``"auto"`` when
+unset) leaves the gate as it is.
 
 Rounding in bfloat16, as in the TPU kernels: the products take bfloat16
 operands and sum in float32; the probabilities P and the score gradients dS
@@ -78,8 +83,25 @@ KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_atten
 #: The three kernels by their short names: "fwd", "bwd_dkv", "bwd_dq".
 KERNELS = tuple(name.removeprefix("flash_attention_") for name in KERNEL_SOURCES)
 
-#: Sequences at least this long take the flash path (self-attention only).
-MIN_FLASH_SEQ_LEN = 8192
+#: Self-attention over at least this many positions takes the kernels at the
+#: head widths where bfloat16 runs on the tensor cores and float32 on the
+#: narrow forward (multiples of 8 up to ``FLOAT32_NARROW_FWD_WIDTH``; the
+#: UNet's heads are 64 wide). Timed on the H100 (``cli/check_flash_attn.py``):
+#: from 256 positions the kernels beat the matmul route forward and forward +
+#: backward at the batched edit's batches; at 64 positions they lose forward
+#: + backward at batch 16. At width 128 bfloat16 wins too, but the float32
+#: forward's wide kernel loses at every length timed, up to 4096.
+MIN_FLASH_SEQ_LEN = 256
+#: The same at every other width the kernels take (the VAE's single 512-wide
+#: head; bfloat16 widths off the tensor cores): at 4096 positions the wide
+#: kernels lose forward + backward to the matmul route; at 16384 they win.
+MIN_FLASH_SEQ_LEN_WIDE = 8192
+#: The widest head of the tensor-core kernels; wider ones take the wide
+#: kernels.
+NARROW_HEAD_WIDTH = 128
+#: The widest head of the float32 forward's narrow kernel
+#: (``flash_fwd_float32_kernel``); wider ones take its wide kernel.
+FLOAT32_NARROW_FWD_WIDTH = 64
 MAX_HEAD_WIDTH = 512
 #: The kernels launch one block row per (batch, head) pair, in a grid
 #: dimension of at most this many blocks.
@@ -116,21 +138,27 @@ def kernel_route(kernel: str, dtype: torch.dtype, width: int) -> str:
                          f"to {MAX_HEAD_WIDTH}, got {width}")
     if dtype == torch.float32:
         return "float32"
-    if width <= 128 and width % 8 == 0:
+    if width <= NARROW_HEAD_WIDTH and width % 8 == 0:
         return "tensor"
-    if width > 128 and width % 64 == 0:
+    if width > NARROW_HEAD_WIDTH and width % 64 == 0:
         return "wide"
     return "cuda_cores"
 
 
 def flash_self_attention_ok(n: int, m: int, dim_head: int) -> bool:
-    """The attention modules' gate: self-attention (``n == m``) over a long
-    sequence with a head width the kernels take, unless ``RGIE_FLASH_ATTN``
-    is ``"0"``. Anything else (the 77-key cross-attention, the shorter levels
-    of the UNet) stays on the matmul-softmax-matmul path."""
-    if FLASH_ATTN == "0":
+    """The attention modules' gate: self-attention (``n == m``) with a head
+    width the kernels take, over at least ``MIN_FLASH_SEQ_LEN`` positions
+    where bfloat16 takes the tensor-core kernels and float32 the narrow
+    forward at that width (multiples of 8 up to ``FLOAT32_NARROW_FWD_WIDTH``),
+    else ``MIN_FLASH_SEQ_LEN_WIDE``, unless
+    ``RGIE_FLASH_ATTN`` is ``"0"``. Anything else (the 77-key
+    cross-attention, the shortest sequences, the VAE's 512-wide head below
+    8192 positions) stays on the matmul-softmax-matmul path."""
+    if FLASH_ATTN == "0" or n != m or not head_width_supported(dim_head):
         return False
-    return n == m and n >= MIN_FLASH_SEQ_LEN and head_width_supported(dim_head)
+    narrow = (kernel_route("fwd", torch.bfloat16, dim_head) == "tensor"
+              and dim_head <= FLOAT32_NARROW_FWD_WIDTH)
+    return n >= (MIN_FLASH_SEQ_LEN if narrow else MIN_FLASH_SEQ_LEN_WIDE)
 
 
 # ---------------------------------------------------------------------------

@@ -120,19 +120,49 @@ def test_wrapper_on_cpu_tensors_matches_autograd(dtype):
     np.testing.assert_allclose(lse.numpy(), expect_lse.numpy(), atol=2e-5)
 
 
-def test_gate_matches_the_jax_gate_on_shapes():
-    """The counterpart of tests/test_diffusion.py's gate test: open only for
-    long self-attention with a head width the kernels take. Unlike the TPU
-    gate it does not ask for N % 512 == 0 (the kernels mask the ragged tile)
-    and takes every multiple of 4 up to 512."""
-    assert FA.flash_self_attention_ok(16384, 16384, 64)
-    assert FA.flash_self_attention_ok(16384, 16384, 512)     # the VAE's single head
-    assert FA.flash_self_attention_ok(8192, 8192, 64)
-    assert not FA.flash_self_attention_ok(16384, 77, 64)     # cross-attention
-    assert not FA.flash_self_attention_ok(4096, 4096, 64)    # below the threshold
-    assert not FA.flash_self_attention_ok(16384, 16384, 65)  # not a multiple of 4
-    assert not FA.flash_self_attention_ok(16384, 16384, 1024)
-    assert FA.flash_self_attention_ok(16000, 16000, 64)      # ragged last tile
+#: (n, m, head width) -> whether the gate sends the call to the kernels.
+GATE_CASES = {
+    "unet-512px-level0": ((4096, 4096, 64), True),      # closed before the H100's crossover
+    "unet-512px-level1": ((1024, 1024, 64), True),
+    "unet-512px-level2": ((256, 256, 64), True),        # the smallest admitted N
+    "unet-1024px-level0": ((16384, 16384, 64), True),
+    "old-threshold": ((8192, 8192, 64), True),
+    "ragged-last-tile": ((16000, 16000, 64), True),
+    "narrowest-head": ((300, 300, 4), False),           # off the tensor cores: 8192
+    "narrowest-head-wide-threshold": ((8192, 8192, 4), True),
+    "tensor-core-width-32": ((256, 256, 32), True),
+    "cuda-core-width": ((4096, 4096, 36), False),       # bf16 on the CUDA-core kernels: 8192
+    "cuda-core-width-threshold": ((8192, 8192, 36), True),
+    "widest-narrow-head": ((300, 300, 64), True),
+    "float32-wide-forward-width": ((4096, 4096, 128), False),   # float32 loses there: 8192
+    "float32-wide-forward-width-threshold": ((8192, 8192, 128), True),
+    "vae-1024px": ((16384, 16384, 512), True),          # the VAE's single head
+    "wide-head-threshold": ((8192, 8192, 132), True),
+    "cross-attention": ((16384, 77, 64), False),
+    "cross-attention-512px": ((4096, 77, 64), False),
+    "unet-512px-mid-block": ((64, 64, 64), False),      # loses forward + backward at batch 16
+    "below-threshold": ((255, 255, 64), False),
+    "vae-512px": ((4096, 4096, 512), False),            # the wide kernels lose there
+    "wide-below-threshold": ((8191, 8191, 132), False),
+    "not-a-multiple-of-4": ((16384, 16384, 65), False),
+    "not-a-multiple-of-4-short": ((4096, 4096, 66), False),
+    "wider-than-512": ((16384, 16384, 1024), False),
+    "wider-than-512-by-4": ((16384, 16384, 516), False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(GATE_CASES))
+def test_gate_matches_the_jax_gate_on_shapes(case):
+    """The gate on every shape it admits and refuses: self-attention with a
+    head width the kernels take, from 256 positions at the widths where
+    bfloat16 runs on the tensor cores and float32 on the narrow forward
+    (multiples of 8 up to 64) and from 8192 at the others (the H100's
+    crossovers, ``cli/check_flash_attn.py``).
+    Unlike the TPU gate (8192 at every width) it does not ask for N % 512 ==
+    0 (the kernels mask the ragged tile) and takes every multiple of 4 up to
+    512."""
+    (n, m, d), admitted = GATE_CASES[case]
+    assert FA.flash_self_attention_ok(n, m, d) is admitted
 
 
 def test_modules_take_the_flash_route_above_the_gate(monkeypatch):
@@ -149,10 +179,10 @@ def test_modules_take_the_flash_route_above_the_gate(monkeypatch):
         return real(q, k, v, **kw)
 
     g = torch.Generator().manual_seed(0)
-    attn = U.CrossAttention(8, 8, heads=2, dim_head=4)
+    attn = U.CrossAttention(16, 16, heads=2, dim_head=8)
     vattn = V.VaeAttention(8, groups=2)
-    x = torch.randn(1, 96, 8, generator=g)
-    ctx = torch.randn(1, 7, 8, generator=g)
+    x = torch.randn(1, 96, 16, generator=g)
+    ctx = torch.randn(1, 7, 16, generator=g)
     xv = torch.randn(1, 8, 12, 8, generator=g)
     with torch.no_grad():
         expect, expect_v, expect_x = attn(x), vattn(xv), attn(x, ctx)
@@ -161,10 +191,55 @@ def test_modules_take_the_flash_route_above_the_gate(monkeypatch):
         assert attn(x) is not None and not calls           # 96 positions: matmul route
         monkeypatch.setattr(FA, "MIN_FLASH_SEQ_LEN", 96)     # the gate itself, lowered
         got, got_v, got_x = attn(x), vattn(xv), attn(x, ctx)
-    assert calls == [(1, 2, 96, 4), (1, 1, 96, 8)]          # the cross-attention call is not one
+    assert calls == [(1, 2, 96, 8), (1, 1, 96, 8)]          # the cross-attention call is not one
     np.testing.assert_allclose(got.numpy(), expect.numpy(), atol=2e-6)
     np.testing.assert_allclose(got_v.numpy(), expect_v.numpy(), atol=2e-6)
     np.testing.assert_array_equal(got_x.numpy(), expect_x.numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [FA.MIN_FLASH_SEQ_LEN, 4096])
+def test_modules_at_the_admitted_lengths_match_the_matmul_route(monkeypatch, n, dtype):
+    """CrossAttention and VaeAttention (narrow heads) at the smallest length
+    the gate admits and at 4096 positions, through the gate as it is: each
+    calls the wrapper once, and its output and its gradients to the input
+    and to the weights match the matmul route (``RGIE_FLASH_ATTN=0``) within
+    7.5e-6 of the largest entry in float32 and 1.5e-2 in bfloat16. The key
+    projection's bias is left out: it shifts each row's scores by one
+    constant, so its gradient is zero and both routes give rounding noise."""
+    from rgie_tpu_torch.diffusion import unet as U
+    from rgie_tpu_torch.diffusion import vae as V
+
+    calls = []
+    real = FA.flash_attention
+
+    def counting(q, k, v, **kw):
+        calls.append(tuple(q.shape))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(U, "flash_attention", counting)
+    monkeypatch.setattr(V, "flash_attention", counting)
+    g = torch.Generator().manual_seed(n)
+    attn = U.CrossAttention(16, 16, heads=2, dim_head=8).to(dtype)
+    vattn = V.VaeAttention(8, groups=2).to(dtype)
+    cases = [(attn, torch.randn(1, n, 16, generator=g)),
+             (vattn, torch.randn(1, 8, 1, n, generator=g))]
+    assert FA.flash_self_attention_ok(n, n, 8)
+    tol = 7.5e-6 if dtype == torch.float32 else 1.5e-2
+    for module, x in cases:
+        x = x.to(dtype)
+        cotangent = torch.randn(x.shape, generator=g).to(dtype)
+        routes = []
+        for switch in ("auto", "0"):
+            monkeypatch.setattr(FA, "FLASH_ATTN", switch)
+            leaves = [x.detach().clone().requires_grad_()] + [
+                p for name, p in module.named_parameters() if name != "to_k.bias"]
+            out = module(leaves[0])
+            routes.append([out.detach()] + list(torch.autograd.grad(out, leaves, cotangent)))
+        for got, expect in zip(*routes):
+            assert got.dtype == expect.dtype
+            assert _rel(got.float().numpy(), expect.float().numpy()) <= tol
+    assert calls == [(1, 2, n, 8), (1, 1, n, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -181,9 +181,9 @@ def test_flash_attn_0_sends_the_modules_to_the_matmul_route(monkeypatch):
         return real(q, k, v, **kw)
 
     g = torch.Generator().manual_seed(0)
-    attn = U.CrossAttention(8, 8, heads=2, dim_head=4)
+    attn = U.CrossAttention(16, 16, heads=2, dim_head=8)
     vattn = V.VaeAttention(8, groups=2)
-    x = torch.randn(1, 96, 8, generator=g)
+    x = torch.randn(1, 96, 16, generator=g)
     xv = torch.randn(1, 8, 12, 8, generator=g)
     monkeypatch.setattr(U, "flash_attention", counting)
     monkeypatch.setattr(V, "flash_attention", counting)
@@ -191,7 +191,7 @@ def test_flash_attn_0_sends_the_modules_to_the_matmul_route(monkeypatch):
         expect, expect_v = attn(x), vattn(xv)                 # below the gate: matmul
         monkeypatch.setattr(FA, "MIN_FLASH_SEQ_LEN", 96)
         attn(x), vattn(xv)
-        assert calls == [(1, 2, 96, 4), (1, 1, 96, 8)]
+        assert calls == [(1, 2, 96, 8), (1, 1, 96, 8)]
         monkeypatch.setattr(FA, "FLASH_ATTN", "0")
         assert not FA.flash_self_attention_ok(16384, 16384, 64)
         got, got_v = attn(x), vattn(xv)

@@ -182,9 +182,12 @@ def test_phase_ranges_last_what_the_run_log_charged(edit):
 @pytest.mark.parametrize("k2", [False, True], ids=["gate", "k2_everywhere"])
 def test_attention_ranges_name_each_call(edit, monkeypatch, k2):
     """One ``attn.*`` range per attention call, named by its route, type and
-    (B, H, N, M, d). With the gate opened for every self-attention, those
-    calls take the flash-attention route (its plain version on the CPU) and
-    say ``k2``."""
+    (B, H, N, M, d): ``k2`` where the gate sends the call to the
+    flash-attention route (its plain version on the CPU), ``matmul``
+    elsewhere; the tiny edit has calls of both. With the gate
+    opened for every self-attention, all those calls say ``k2``."""
+    from rgie_tpu_torch.ops.kernels.flash_attention import flash_self_attention_ok
+
     pipe, run = edit[:2]
     if k2:
         for module in (U, V):
@@ -215,7 +218,9 @@ def test_attention_ranges_name_each_call(edit, monkeypatch, k2):
         route, dtype, *shape = match.groups()
         assert [int(x) for x in shape] == [b, h, n, m, d]
         assert dtype == "f32"
-        assert route == ("k2" if k2 and self_attn else "matmul")
+        gated = k2 and self_attn or flash_self_attention_ok(n, m, d)
+        assert route == ("k2" if gated else "matmul")
+    assert {match.group(1) for match in named} == {"k2", "matmul"}
 
 
 def test_training_ranges_nest():
